@@ -1,0 +1,109 @@
+"""Segment sum, the gradient-aggregation scatter, as a hand-written CUDA kernel.
+
+`segment_sum(indices, grads, num_rows)` sums the (T, D) rows of `grads` into
+a (num_rows, D) table by `indices`. Ids < 0 or >= num_rows are dropped;
+negative ids do not wrap. It is the port of `segment_sum_pallas`
+(skge_tpu/ops/pallas_segment.py); the kernel is `csrc/segment_sum.cu`.
+
+- A CUDA tensor goes to the kernel, fp32 only, or the call raises.
+- A CPU tensor goes to `segment_sum_reference`, the plain PyTorch version of
+  the same function (fp32 or fp64), which the CPU tests run and which the
+  kernel is checked against on the card.
+
+`launches` counts kernel launches, so a run can show that its scatters went
+through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from skge_torch.ops import _build
+
+launches = 0
+
+
+def segment_sum_reference(
+    indices: torch.Tensor, grads: torch.Tensor, num_rows: int
+) -> torch.Tensor:
+    """Plain version: `index_add_` after moving dropped ids out of the way
+    (`index_add_` raises on ids outside [0, num_rows))."""
+    keep = (indices >= 0) & (indices < num_rows)
+    out = torch.zeros(
+        (num_rows, grads.shape[1]), dtype=grads.dtype, device=grads.device
+    )
+    return out.index_add_(
+        0,
+        torch.where(keep, indices, 0),
+        torch.where(keep[:, None], grads, 0.0),
+    )
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("segment_sum")
+    fn = lib.skge_segment_sum_f32
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [
+            ctypes.c_void_p
+        ]
+        fn.restype = ctypes.c_int
+        lib.skge_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.skge_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def segment_sum(
+    indices: torch.Tensor, grads: torch.Tensor, num_rows: int
+) -> torch.Tensor:
+    """Sum `grads` (T, D) into a (num_rows, D) table by `indices` (T,).
+
+    On a CUDA tensor the kernel's fp32 atomics sum in no fixed order, so the
+    last bits vary from run to run.
+    """
+    global launches
+    if indices.dim() != 1 or grads.dim() != 2:
+        raise ValueError(
+            f"want indices (T,) and grads (T, D), got {tuple(indices.shape)} "
+            f"and {tuple(grads.shape)}"
+        )
+    if indices.shape[0] != grads.shape[0]:
+        raise ValueError(
+            f"{indices.shape[0]} indices for {grads.shape[0]} gradient rows"
+        )
+    if indices.dtype != torch.int64:
+        raise TypeError(f"indices must be int64, got {indices.dtype}")
+    if indices.device != grads.device:
+        raise ValueError(
+            f"indices on {indices.device}, grads on {grads.device}"
+        )
+    if num_rows < 0:
+        raise ValueError(f"num_rows must be >= 0, got {num_rows}")
+    if grads.device.type == "cpu":
+        if grads.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"fp32 or fp64 only, got {grads.dtype}")
+        return segment_sum_reference(indices, grads, num_rows)
+    if grads.device.type != "cuda":
+        raise ValueError(f"no segment_sum for device {grads.device}")
+    if grads.dtype != torch.float32:
+        raise TypeError(f"the CUDA kernel is fp32-only, got {grads.dtype}")
+    if not (indices.is_contiguous() and grads.is_contiguous()):
+        raise ValueError("indices and grads must be contiguous")
+    t, d = grads.shape
+    out = torch.zeros((num_rows, d), dtype=grads.dtype, device=grads.device)
+    if t == 0 or d == 0 or num_rows == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(grads.device):
+        err = lib.skge_segment_sum_f32(
+            indices.data_ptr(), grads.data_ptr(), out.data_ptr(),
+            t, d, num_rows, torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            "segment_sum kernel launch failed: "
+            + lib.skge_cuda_error_string(err).decode()
+        )
+    launches += 1
+    return out

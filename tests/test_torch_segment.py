@@ -1,0 +1,95 @@
+"""The port's segment sum (skge_torch/ops/cuda_segment.py) against the JAX
+package's Pallas kernel `segment_sum_pallas`, run in interpret mode.
+
+On the CPU the port's wrapper runs its plain version; the CUDA kernel is
+checked against that plain version on the card (marked `cuda`).
+fp32, tolerance rtol = atol = 1e-5 as in tests/test_pallas.py.
+
+JAX is imported inside the parity test only, so that the card test also
+runs where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_segment.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from skge_torch.ops import cuda_segment
+
+torch.set_num_threads(1)
+
+# (name, t, r, d, low id, high id (exclusive), forced VMEM budget or None)
+CASES = {
+    "small": (64, 16, 8, 0, 16, None),
+    "fb15k_width": (1000, 37, 152, 0, 37, None),
+    "several_chunks": (4096, 200, 24, 0, 200, None),
+    "out_of_range_dropped": (512, 20, 16, 0, 24, None),
+    "negative_dropped": (512, 20, 16, -4, 20, None),
+    "tail_chunk": (1500, 40, 8, 0, 40, None),
+    "wide_column_tiles": (300, 17, 520, 0, 19, 2 << 20),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_segment_sum_matches_pallas(case, monkeypatch):
+    import jax.numpy as jnp
+    from skge_tpu.ops import pallas_segment as ps
+
+    t, r, d, lo, hi, budget = CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    idx = rng.integers(lo, hi, t)
+    if case == "out_of_range_dropped":
+        idx[::5] = r  # the padding convention
+    g = rng.normal(size=(t, d)).astype(np.float32)
+    if budget is not None:
+        monkeypatch.setattr(ps, "_VMEM_BUDGET", budget)  # forces column tiles
+        assert ps._col_tile(r, d, 1024) < 640
+    want = ps.segment_sum_pallas(
+        jnp.asarray(idx, jnp.int32), jnp.asarray(g), r, chunk=1024,
+        interpret=True,
+    )
+    got = cuda_segment.segment_sum(torch.as_tensor(idx), torch.as_tensor(g), r)
+    assert got.dtype == torch.float32 and got.shape == (r, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_segment_sum_plain_takes_fp64_and_rejects_bad_input():
+    rng = np.random.default_rng(5)
+    idx = torch.as_tensor(rng.integers(-2, 12, 300))
+    g = torch.as_tensor(rng.normal(size=(300, 3)))
+    out = cuda_segment.segment_sum(idx, g, 10)
+    want = np.zeros((10, 3))
+    for i, row in zip(idx.numpy(), g.numpy()):
+        if 0 <= i < 10:
+            want[i] += row
+    np.testing.assert_allclose(out.numpy(), want, rtol=1e-12, atol=1e-12)
+    with pytest.raises(TypeError):
+        cuda_segment.segment_sum(idx.to(torch.int32), g, 10)
+    with pytest.raises(ValueError):
+        cuda_segment.segment_sum(idx[:-1], g, 10)
+
+
+@pytest.mark.cuda
+def test_segment_sum_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    rng = np.random.default_rng(6)
+    for t, r, d, lo, hi in [
+        (15_520, 16_296, 151, 0, 16_296),
+        (15_520, 16_296, 151, -50, 16_346),
+        (1001, 40, 37, 0, 40),
+        (15_520, 16_296, 1, 0, 16_296),
+        (64, 17, 22_500, 0, 19),
+        (0, 10, 5, 0, 10),
+    ]:
+        idx = torch.as_tensor(rng.integers(lo, hi, t), device="cuda")
+        g = torch.as_tensor(
+            rng.normal(size=(t, d)).astype(np.float32), device="cuda"
+        )
+        before = cuda_segment.launches
+        got = cuda_segment.segment_sum(idx, g, r)
+        torch.cuda.synchronize()
+        assert cuda_segment.launches == before + (1 if t else 0)
+        want = cuda_segment.segment_sum_reference(idx, g, r)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
