@@ -1,17 +1,19 @@
 """skge_torch: the PyTorch/CUDA port of tpu-kge for NVIDIA Hopper.
 
 The JAX package `skge_tpu` is the reference; module and function names
-match it. So far the port holds one slice: TransE trained with the
-pairwise margin loss against a shared negative pool, row-sparse AdaGrad or
-SGD, and filtered-ranking evaluation. Its gradient scatter is a
-hand-written CUDA kernel (`skge_torch.ops.cuda_segment`).
+match it. So far the port holds two slices: TransE and RESCAL trained
+against a shared negative pool (pairwise margin loss; RESCAL also the
+pointwise logistic loss), row-sparse AdaGrad or SGD, and filtered-ranking
+evaluation. The gradient scatters are hand-written CUDA kernels
+(`skge_torch.ops.cuda_segment`, and `skge_torch.ops.cuda_outer` for
+RESCAL's factored W gradient).
 
-    from skge_torch import TransE, AdaGrad, SharedNegativeSampler, \
+    from skge_torch import RESCAL, AdaGrad, SharedNegativeSampler, \
         init_state, make_pairwise_step, make_epoch_fn
 """
 
 from skge_torch.evaluation import FilteredRankingEval
-from skge_torch.models import MODELS, KGEModel, TransE
+from skge_torch.models import MODELS, RESCAL, KGEModel, TransE
 from skge_torch.optim import OPTIMIZERS, SGD, AdaGrad
 from skge_torch.sampling import SharedNegativeSampler
 from skge_torch.training import (
@@ -20,6 +22,7 @@ from skge_torch.training import (
     init_state,
     make_epoch_fn,
     make_pairwise_step,
+    make_pointwise_step,
 )
 
 __version__ = "0.1.0"
@@ -30,6 +33,7 @@ __all__ = [
     "KGEModel",
     "MODELS",
     "OPTIMIZERS",
+    "RESCAL",
     "SGD",
     "SharedNegativeSampler",
     "StepMetrics",
@@ -38,4 +42,5 @@ __all__ = [
     "init_state",
     "make_epoch_fn",
     "make_pairwise_step",
+    "make_pointwise_step",
 ]

@@ -78,11 +78,23 @@ class KGEModel:
     name = "base"
     dense_param_names = ()
     post_constraints = {}
+    # row params receiving `rparam * row` regularization on touched rows
+    reg_row_params = ()
 
     @property
     def pairwise_af(self) -> str:
         """Activation applied to scores before the pairwise margin test."""
         return "linear"
+
+    @property
+    def regularization(self) -> float:
+        """L2 coefficient applied per touched row (`rparam`); 0 when absent."""
+        return float(getattr(self, "rparam", 0.0))
+
+    def reg_grad_rows(self, pname: str, rows: torch.Tensor) -> torch.Tensor:
+        """Row-L2 (`rparam`) gradient contribution for `pname` rows:
+        identity by default."""
+        return rows
 
     @property
     def tdtype(self) -> torch.dtype:

@@ -8,14 +8,18 @@ optimizer leaves them untouched.
 - `segment_mean_unique`: batch-local, over the unique touched rows.
 - `segment_mean_dense`: into full-table arrays; its scatter is the CUDA
   kernel `segment_sum` (ops/cuda_segment.py) on the card.
+- `segment_outer_mean_dense`: the same for low-rank factored gradients of
+  a matrix-valued row (RESCAL's W); its scatter is the CUDA kernel
+  `segment_outer_sum` (ops/cuda_outer.py) on the card.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
+from skge_torch.ops.cuda_outer import segment_outer_sum
 from skge_torch.ops.cuda_segment import segment_sum
 
 
@@ -40,6 +44,24 @@ class DenseGrads(NamedTuple):
     """
 
     grads: torch.Tensor
+    count: torch.Tensor
+
+
+class FactoredOcc(NamedTuple):
+    """Occurrence list whose per-occurrence gradients are low-rank sums of
+    outer products `sum_f us[f][t] (x) vs[f][t]` of a matrix-valued row
+    (RESCAL's W: rank 2, `es (x) dq + dr (x) eo`), kept factored so that
+    dense aggregation never materializes the (T, d, d) tensor.
+
+    idx:    (T,) int64 row ids (>= num_rows = dropped padding).
+    us, vs: tuples of (T, d) left/right factors, one pair per rank term;
+            premasked (violation-weighted sums).
+    count:  (T,) occurrence counts for the duplicate-index averaging.
+    """
+
+    idx: torch.Tensor
+    us: Tuple[torch.Tensor, ...]
+    vs: Tuple[torch.Tensor, ...]
     count: torch.Tensor
 
 
@@ -84,6 +106,29 @@ def segment_mean_unique(
     gsum.index_add_(0, inv, g)
     gavg = gsum / _bmask(torch.clamp(count, min=1.0), gsum.ndim)
     return UniqueGrads(uidx=uidx, grads=gavg, count=count)
+
+
+def segment_outer_mean_dense(occ: FactoredOcc, num_rows: int) -> DenseGrads:
+    """`segment_mean_dense` for factored occurrence gradients.
+
+    Sums the outer products into the (num_rows, d, d) table through
+    `segment_outer_sum` and the counts through `segment_sum` (D = 1), then
+    divides. The JAX package's `backend` choice and its VMEM fallback have
+    no counterpart: on the card this is always the kernel, on the CPU the
+    plain version.
+    """
+    idx = occ.idx.contiguous()  # a column of the (B, 3) batch
+    gsum = segment_outer_sum(
+        idx,
+        tuple(u.contiguous() for u in occ.us),
+        tuple(v.contiguous() for v in occ.vs),
+        num_rows,
+    )
+    count = segment_sum(
+        idx, occ.count.to(gsum.dtype)[:, None].contiguous(), num_rows
+    )[:, 0]
+    gavg = gsum / _bmask(torch.clamp(count, min=1.0), gsum.ndim)
+    return DenseGrads(grads=gavg, count=count)
 
 
 def segment_mean_dense(
