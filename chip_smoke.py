@@ -1,32 +1,48 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`skge_torch`) on one NVIDIA GPU.
 
-Drives the port's two slices once at full width on FB15k-shaped synthetic
-data (14,951 entities, 1,345 relations, 483,142 train triples) against a
-shared pool of 1,024 negatives, AdaGrad, aggregate="dense_pallas":
+Drives the port's paths once at full width, AdaGrad lr 0.1, 100 batches
+per epoch, aggregate="dense_pallas", fp32 with TF32 off, on two synthetic
+graphs: FB15k's shape (14,951 entities, 1,345 relations, 483,142 train
+triples) and WN18's (40,943 entities, 18 relations, 141,442 train
+triples). Every gradient scatter runs in the CUDA kernel `segment_sum`
+(skge_torch/csrc/segment_sum.cu), and RESCAL's factored shared-pool W
+gradient in `segment_outer_sum` (skge_torch/csrc/segment_outer_sum.cu).
 
-- TransE-L1, ncomp=150, pairwise margin loss (`python bench.py`'s
-  default); every gradient scatter in the CUDA kernel `segment_sum`
-  (skge_torch/csrc/segment_sum.cu);
-- RESCAL, ncomp=100, pairwise (`bench.py --model rescal --ncomp 100`) and
-  pointwise; W's factored gradient scatter in the CUDA kernel
-  `segment_outer_sum` (skge_torch/csrc/segment_outer_sum.cu), E's and the
-  counts in `segment_sum`.
+Shared negative pool of 1,024 (`python bench.py`'s scheme), FB15k:
+- TransE-L1, ncomp=150, margin 1.0 (`python bench.py`'s default);
+- RESCAL, ncomp=100 (`bench.py --model rescal --ncomp 100`), pairwise and
+  pointwise.
+Reference-exact iid negatives (`pairwise_grads_fused`):
+- TransE-L1 on FB15k with 16 random-mode negatives per positive
+  (`bench.py --sampler random-mode --negatives 8 --aggregate dense_pallas`);
+- HolE, ncomp=150, sigmoid before the margin 0.2, on WN18, one random-mode
+  negative per positive and mode (`experiment.py`'s defaults);
+- ER-MLP, ncomp=150, nhidden=10, margin 0.2, on FB15k with the Bernoulli
+  sampler;
+- HolE on WN18 with the LCWA and the corrupted sampler, the iid pointwise
+  step, and the shared pool at k=4,096 (`bench.py --model hole --k 4096`).
 
 Phases, each fatal:
 
 1. environment: versions, the card's name and power limit; no GPU -> exit 2;
 2. build both kernels from source with nvcc, in parallel;
 3. each kernel against its plain PyTorch version on the card, at the
-   slices' shapes and at edge shapes, and both timed;
+   paths' shapes and at edge shapes, and both timed; `segment_sum` also
+   at the iid TransE step's 91,808 occurrences;
 4. training, each path with the launch counts set to 0 just before it and
-   read just after: TransE 2 epochs of 100 steps (4), RESCAL pairwise 2
-   epochs of 100 steps (4b), RESCAL pointwise 10 steps (4c); exact launch
-   counts, finite losses and params on the card;
-5. one step on the card against the same step on the CPU, TransE (5) and
-   RESCAL (5b), from the initial params with the trained run's AdaGrad
-   accumulators;
-6. filtered ranking of 1,000 held-out triples, TransE (6) and RESCAL (6b).
+   read just after, exact launch counts, finite losses and params on the
+   card: TransE (4), RESCAL pairwise (4b), 2 epochs of 100 steps each;
+   RESCAL pointwise 10 steps (4c); iid TransE (4d), HolE (4e) and ER-MLP
+   (4f), 2 epochs of 100 steps each, with the device's busy time per step;
+   HolE's LCWA, corrupted, pointwise and k=4,096 paths, 10
+   steps each (4g);
+5. one step on the card against the same step on the CPU, TransE (5),
+   RESCAL (5b), HolE (5c, and the card's `unique` aggregation against its
+   `dense_pallas`) and ER-MLP (5d), from the initial params with the
+   trained run's AdaGrad accumulators;
+6. filtered ranking of 1,000 held-out triples, TransE (6), RESCAL (6b),
+   HolE (6c) and ER-MLP (6d).
 
 Prints one JSON line with the kernel table, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.
@@ -47,26 +63,58 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from skge_torch import (RESCAL, AdaGrad, FilteredRankingEval,
-                        SharedNegativeSampler, TrainState, TransE, init_state,
-                        make_epoch_fn, make_pairwise_step, make_pointwise_step)
-from skge_torch.data import synthetic_kg
+from skge_torch import (ERMLP, RESCAL, AdaGrad, BernoulliSampler,
+                        CorruptedSampler, FilteredRankingEval, HolE,
+                        LCWASampler, RandomModeSampler, SharedNegativeSampler,
+                        TrainState, TransE, init_state, make_epoch_fn,
+                        make_pairwise_step, make_pointwise_step)
+from skge_torch.data import (bernoulli_probs, sorted_train_keys, synthetic_kg,
+                             type_index_arrays)
+from skge_torch.models.base import ACTIVATIONS
 from skge_torch.ops import _build, cuda_outer, cuda_segment
 
-# the data every path trains on: FB15k's shape
+# the graphs the paths train on: FB15k's shape (DATA) and WN18's
 DATA = SimpleNamespace(n_entities=14_951, n_relations=1_345, n_train=483_142,
+                       n_test=1_000, seed=0)
+WN18 = SimpleNamespace(n_entities=40_943, n_relations=18, n_train=141_442,
                        n_test=1_000, seed=0)
 # the TransE slice: `python bench.py` defaults (TransE-L1, shared pool)
 TRANSE = SimpleNamespace(
-    model="transe", loss="pairwise", ncomp=150, k=1024, margin=1.0, lr=0.1,
-    nbatches=100, epochs=2, seed=0,
+    model="transe", loss="pairwise", sampler="shared", ncomp=150, k=1024,
+    margin=1.0, lr=0.1, nbatches=100, epochs=2, steps=0, seed=0, data="fb15k",
+    profile=False,
 )
 # the RESCAL slice: `python bench.py --model rescal --ncomp 100`
 RESCAL_PAIRWISE = SimpleNamespace(**{**vars(TRANSE), "model": "rescal",
                                      "ncomp": 100, "rparam": 0.0})
 RESCAL_POINTWISE = SimpleNamespace(**{**vars(RESCAL_PAIRWISE),
-                                      "loss": "pointwise", "epochs": 1,
-                                      "steps": 10})
+                                      "loss": "pointwise", "steps": 10})
+# the iid slice. `bench.py --sampler random-mode --negatives 8`: 16 pairs
+# per positive
+TRANSE_IID = SimpleNamespace(**{**vars(TRANSE), "sampler": "random-mode",
+                                "negatives": 8, "profile": True})
+# `experiment.py`'s defaults: HolE, sigmoid before the margin 0.2, one
+# random-mode negative per positive and mode; "HolE on WN18" of BASELINE.json
+HOLE = SimpleNamespace(**{**vars(TRANSE), "model": "hole", "sampler": "random-mode",
+                          "negatives": 1, "margin": 0.2, "rparam": 0.0,
+                          "data": "wn18", "profile": True})
+# "ER-MLP on FB15k with Bernoulli negative sampling" of BASELINE.json
+ERMLP_BERNOULLI = SimpleNamespace(**{**vars(TRANSE), "model": "ermlp",
+                                     "sampler": "bernoulli", "nhidden": 10,
+                                     "margin": 0.2, "profile": True})
+HOLE_LCWA = SimpleNamespace(**{**vars(HOLE), "sampler": "lcwa", "ntries": 100,
+                               "steps": 10, "profile": False})
+HOLE_CORRUPTED = SimpleNamespace(**{**vars(HOLE_LCWA), "sampler": "corrupted"})
+HOLE_POINTWISE = SimpleNamespace(**{**vars(HOLE_LCWA), "sampler": "random-mode",
+                                    "loss": "pointwise"})
+# `bench.py`'s ALL_ROWS row `--model hole --k 4096`
+HOLE_SHARED = SimpleNamespace(**{**vars(HOLE_LCWA), "sampler": "shared", "k": 4096})
+PATHS = (  # (config, phase)
+    (TRANSE, "4"), (RESCAL_PAIRWISE, "4b"), (RESCAL_POINTWISE, "4c"),
+    (TRANSE_IID, "4d"), (HOLE, "4e"), (ERMLP_BERNOULLI, "4f"),
+    (HOLE_LCWA, "4g"), (HOLE_CORRUPTED, "4g"), (HOLE_POINTWISE, "4g"),
+    (HOLE_SHARED, "4g"),
+)
 KERNELS = {  # name: (wrapper module, source, the TPU kernel it replaces)
     "segment_sum": (cuda_segment, "skge_torch/csrc/segment_sum.cu",
                     "skge_tpu/ops/pallas_segment.py:109"),
@@ -178,12 +226,15 @@ def _batch_size(cfg, n=None) -> int:
 def segment_sum_checks(dev) -> tuple[float, float, float]:
     """`segment_sum` against `segment_sum_reference` on the same card
     inputs; returns (max abs error, kernel ms, plain ms) at the TransE
-    slice's shape."""
+    slice's shape. Also times the iid TransE step's shape: s, o and 16
+    corruptions into E, and R, in one scatter."""
     e, r = DATA.n_entities, DATA.n_relations
     t_slice, rows, width = 3 * _batch_size(TRANSE) + TRANSE.k, e + r, TRANSE.ncomp + 1
+    t_iid = (3 + 2 * TRANSE_IID.negatives) * _batch_size(TRANSE_IID)
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = [
         ("slice", t_slice, rows, width, 0, rows),
+        ("iid", t_iid, rows, width, 0, rows),
         ("ids<0 and >=R dropped", t_slice, rows, width, -50, rows + 50),
         ("ragged last block", 1001, 40, 37, 0, 40),
         ("D=1", t_slice, rows, 1, 0, rows),
@@ -191,7 +242,7 @@ def segment_sum_checks(dev) -> tuple[float, float, float]:
         ("T=0", 0, 10, 5, 0, 10),
     ]
     worst = 0.0
-    slice_inputs = None
+    timed = {}
     for name, t, nrows, d, lo, hi in cases:
         idx = torch.randint(lo, hi, (t,), generator=gen, device=dev)
         grads = torch.randn(t, d, generator=gen, device=dev)
@@ -205,11 +256,15 @@ def segment_sum_checks(dev) -> tuple[float, float, float]:
         log(f"[3] segment_sum {name:24s} T={t:6d} R={nrows:6d} D={d:6d}  "
             f"max|err|={err:.3e}  {'ok' if ok else 'MISMATCH'}")
         check(ok, f"segment_sum against its plain version ({name})")
-        if name == "slice":
-            slice_inputs = (idx, grads, nrows)
+        if name in ("slice", "iid"):
+            timed[name] = (idx, grads, nrows)
     k_ms, p_ms = time_against_plain(
         cuda_segment.segment_sum, cuda_segment.segment_sum_reference,
-        slice_inputs, f"segment_sum at T={t_slice}, R={rows}, D={width}",
+        timed["slice"], f"segment_sum at T={t_slice}, R={rows}, D={width}",
+    )
+    time_against_plain(
+        cuda_segment.segment_sum, cuda_segment.segment_sum_reference,
+        timed["iid"], f"segment_sum at T={t_iid}, R={rows}, D={width} (iid)",
     )
     return worst, k_ms, p_ms
 
@@ -261,14 +316,72 @@ def segment_outer_sum_checks(dev) -> tuple[float, float, float]:
 def make_model(cfg, ds):
     if cfg.model == "transe":
         return TransE(ds.n_entities, ds.n_relations, ncomp=cfg.ncomp)
-    return RESCAL(ds.n_entities, ds.n_relations, ncomp=cfg.ncomp, rparam=cfg.rparam)
+    if cfg.model == "rescal":
+        return RESCAL(ds.n_entities, ds.n_relations, ncomp=cfg.ncomp, rparam=cfg.rparam)
+    if cfg.model == "hole":
+        return HolE(ds.n_entities, ds.n_relations, ncomp=cfg.ncomp, rparam=cfg.rparam)
+    return ERMLP(ds.n_entities, ds.n_relations, ncomp=cfg.ncomp, nhidden=cfg.nhidden)
 
 
-def make_step(cfg, model, opt, sampler):
+def make_sampler(cfg, ds, dev):
+    """The path's sampler, its index arrays on `dev`."""
+    n_e, n_r = ds.n_entities, ds.n_relations
+    if cfg.sampler == "shared":
+        return SharedNegativeSampler(n_e, k=cfg.k)
+    if cfg.sampler == "random-mode":
+        return RandomModeSampler(n_e, modes=(0, 1) * cfg.negatives)
+    if cfg.sampler == "bernoulli":
+        return BernoulliSampler(
+            n_e, torch.as_tensor(bernoulli_probs(ds.train, n_r), device=dev))
+    if cfg.sampler == "lcwa":
+        return LCWASampler(n_e, n_r, torch.as_tensor(sorted_train_keys(ds), device=dev),
+                           ntries=cfg.ntries)
+    return CorruptedSampler(n_e, *(torch.as_tensor(a, device=dev)
+                                   for a in type_index_arrays(ds.train, n_r)))
+
+
+def pairs_per_positive(cfg) -> int:
+    """Margin-ranked pairs (or appended negatives) per positive, as
+    `bench.py` counts them."""
+    if cfg.sampler == "shared":
+        return 2 * cfg.k
+    if cfg.sampler == "random-mode":
+        return 2 * cfg.negatives
+    return 1 if cfg.sampler == "bernoulli" else 2
+
+
+def make_step(cfg, model, opt, sampler, aggregate="dense_pallas"):
     if cfg.loss == "pairwise":
         return make_pairwise_step(model, opt, sampler, margin=cfg.margin,
-                                  aggregate="dense_pallas")
-    return make_pointwise_step(model, opt, sampler, aggregate="dense_pallas")
+                                  aggregate=aggregate)
+    return make_pointwise_step(model, opt, sampler, aggregate=aggregate)
+
+
+def profile(step, state, batches, mask, step_ms, tag) -> None:
+    """The card's busy time per step over 5 steps (torch.profiler), its
+    share of the unprofiled step time, and the operators that take it."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(5):
+            state, _ = step(state, batches[i], mask)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time for e in kernels) / 5e3
+    check(busy > 0, "the profiler saw the card's kernels")
+    log(f"[{tag}] device busy {busy:.4f} ms per step ({len(kernels) / 5:.0f} device "
+        f"events per step): {100 * busy / step_ms:.2f}% of the {step_ms:.3f} ms "
+        f"step, idle {100 - 100 * busy / step_ms:.2f}%")
+    # the kernels' time, by the operator that launched them
+    ops = sorted((e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CPU
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)
+    total = sum(e.self_device_time_total for e in ops)
+    log(f"[{tag}] device time by operator: " + ", ".join(
+        f"{e.key} {e.self_device_time_total / 5e3:.4f} ms "
+        f"({100 * e.self_device_time_total / total:.1f}%)" for e in ops[:10]))
 
 
 def train(cfg, ds, dev, tag="4"):
@@ -276,20 +389,19 @@ def train(cfg, ds, dev, tag="4"):
     trained state, {kernel: launches during training})."""
     model = make_model(cfg, ds)
     opt = AdaGrad(lr=cfg.lr)
-    step = make_step(cfg, model, opt, SharedNegativeSampler(ds.n_entities, k=cfg.k))
+    step = make_step(cfg, model, opt, make_sampler(cfg, ds, dev))
     state0 = init_state(model, opt, torch.Generator(device=dev).manual_seed(cfg.seed))
     xs = torch.as_tensor(ds.train, dtype=torch.int64, device=dev)
     n = xs.shape[0]
     b = _batch_size(cfg, n)
-    if cfg.loss == "pairwise":
+    # a few steps over the first full batches of one shuffle
+    perm = torch.randperm(n, generator=state0.generator, device=dev)
+    batches = xs[perm[: max(cfg.steps, 5) * b]].reshape(-1, b, 3)
+    mask = torch.ones(b, device=dev)
+    if cfg.steps == 0:
         epoch = make_epoch_fn(step, n, cfg.nbatches)
-        runs, steps = [epoch] * cfg.epochs, cfg.nbatches
+        runs, steps, triples = [epoch] * cfg.epochs, cfg.nbatches, n
     else:
-        # a few steps over the first batches of one shuffle
-        perm = torch.randperm(n, generator=state0.generator, device=dev)
-        batches = xs[perm[: cfg.steps * b]].reshape(cfg.steps, b, 3)
-        mask = torch.ones(b, device=dev)
-
         def some_steps(state, xs):
             ms = []
             for i in range(cfg.steps):
@@ -299,9 +411,11 @@ def train(cfg, ds, dev, tag="4"):
                 loss=torch.stack([m.loss for m in ms]),
                 nviolations=torch.stack([m.nviolations for m in ms]))
 
-        runs, steps = [some_steps], cfg.steps
-    # bench.py's work units per epoch: 2 scored triples per margin-ranked pair
-    scored = 2 * 2 * cfg.k * n
+        runs, steps, triples = [some_steps], cfg.steps, cfg.steps * b
+    # bench.py's work units: 2 scored triples per margin-ranked pair; a
+    # pointwise step scores each positive and each negative once
+    per = 2 * pairs_per_positive(cfg) if cfg.loss == "pairwise" else 1 + pairs_per_positive(cfg)
+    scored = per * triples
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     state = state0
@@ -314,11 +428,10 @@ def train(cfg, ds, dev, tag="4"):
         _sync(dev)
         dt = time.perf_counter() - t0
         check(bool(torch.isfinite(m.loss).all()), f"{cfg.model} finite losses, run {e}")
-        rate = (f"  {scored / dt:.6e} scored triples/s"
-                if cfg.loss == "pairwise" else "")
-        log(f"[{tag}] {cfg.model} {cfg.loss} run {e} ({steps} steps): violations "
-            f"{int(m.nviolations.sum())}  loss {float(m.loss.sum()):.6e}  "
-            f"{dt:.3f} s  step {1e3 * dt / steps:.3f} ms{rate}")
+        log(f"[{tag}] {cfg.model} {cfg.loss} {cfg.sampler} run {e} ({steps} steps): "
+            f"violations {int(m.nviolations.sum())}  loss {float(m.loss.sum()):.6e}  "
+            f"{dt:.3f} s  step {1e3 * dt / steps:.3f} ms  "
+            f"{scored / dt:.6e} scored triples/s")
     launches = {name: mod.launches for name, (mod, _, _) in KERNELS.items()}
     if dev.type == "cuda":
         log(f"[{tag}] peak device memory "
@@ -331,17 +444,20 @@ def train(cfg, ds, dev, tag="4"):
         norm = float(state.params["E"].norm(dim=1).max())
         log(f"[{tag}] max row norm of E {norm:.7f}")
         check(norm <= 1.0 + 1e-5, "normless1: max row norm of E <= 1 + 1e-5")
+    if cfg.profile and dev.type == "cuda":
+        profile(step, state, batches, mask, 1e3 * dt / steps, tag)
     return model, opt, state0, state, launches
 
 
 def expected_launches(cfg) -> dict:
-    """Per step: TransE's E and R share one segment_sum; RESCAL runs one
-    segment_outer_sum (W) and two segment_sum (E with its count channel,
-    W's counts)."""
-    steps = cfg.epochs * cfg.nbatches if cfg.loss == "pairwise" else cfg.steps
-    if cfg.model == "transe":
-        return {"segment_sum": steps, "segment_outer_sum": 0}
-    return {"segment_sum": 2 * steps, "segment_outer_sum": steps}
+    """Per step: the row params of TransE, HolE and ER-MLP (E and R) share
+    one segment_sum, ER-MLP's dense W and C take no scatter; RESCAL's
+    shared-pool path runs one segment_outer_sum (W) and two segment_sum (E
+    with its count channel, W's counts)."""
+    steps = cfg.steps or cfg.epochs * cfg.nbatches
+    if cfg.model == "rescal":
+        return {"segment_sum": 2 * steps, "segment_outer_sum": steps}
+    return {"segment_sum": steps, "segment_outer_sum": 0}
 
 
 class FixedPool:
@@ -354,6 +470,17 @@ class FixedPool:
         return self.ids.to(pos.device)
 
 
+class FixedCorruptions:
+    """A `corruptions`-protocol sampler that always hands out the same
+    corruptions."""
+
+    def __init__(self, corruptions):
+        self.corr = corruptions
+
+    def corruptions(self, generator, pos, mask):
+        return [(m, r.to(pos.device), v.to(pos.device)) for m, r, v in self.corr]
+
+
 def _state_on(state: TrainState, dev) -> TrainState:
     return TrainState(
         params={k: v.to(dev) for k, v in state.params.items()},
@@ -364,17 +491,43 @@ def _state_on(state: TrainState, dev) -> TrainState:
     )
 
 
-def step_against_cpu(cfg, ds, model, opt, start, dev, tag="5") -> None:
-    """Phase 5: one step from the same state, batch and pool, on the card
-    (kernels) and on the CPU (plain versions). At the initial params every
-    pair violates by a wide margin, so the violation counts must agree."""
+@torch.no_grad()
+def near_margin(cfg, model, params, batch, sampler) -> int:
+    """Pairs whose transformed scores lie within 1e-4 of the margin test's
+    edge: the ones fp32 rounding may flip between two devices."""
+    af = ACTIVATIONS[model.pairwise_af][0]
+    r = model.gather_rows(params, *(batch[:, i] for i in range(3)))
+    dense = model.dense_params(params)
+    gp = af(model.score_from_rows(r, dense))
+    if isinstance(sampler, FixedPool):
+        pool = params["E"][sampler.ids.to(batch.device)]
+        gns = [af(model.score_pool(r, pool, dense, mode)) for mode in (0, 1)]
+        gp = gp[:, None]
+    else:
+        gns = [af(model.score_from_rows({**r, "es" if mode == 0 else "eo":
+                                         params["E"][repl.to(batch.device)]}, dense))
+               for mode, repl, _ in sampler.corr]
+    return sum(int(((gn + cfg.margin - gp).abs() < 1e-4).sum()) for gn in gns)
+
+
+def step_against_cpu(cfg, ds, model, opt, start, dev, tag="5", unique_too=False):
+    """Phase 5: one step from the same state, batch and negatives, on the
+    card (kernels) and on the CPU (plain versions). At the initial params
+    every pair violates by a wide margin, so the violation counts must
+    agree. `unique_too`: also the card's `unique` aggregation (no kernel)
+    against its `dense_pallas`."""
     gen = torch.Generator().manual_seed(cfg.seed + 2)
     b = _batch_size(cfg, ds.train.shape[0])
     rows = torch.randperm(ds.train.shape[0], generator=gen)[:b]
     batch = torch.as_tensor(ds.train, dtype=torch.int64)[rows]
-    pool = torch.randint(0, ds.n_entities, (cfg.k,), generator=gen)
     mask = torch.ones(b)
-    step = make_step(cfg, model, opt, FixedPool(pool))
+    if cfg.sampler == "shared":
+        sampler = FixedPool(torch.randint(0, ds.n_entities, (cfg.k,), generator=gen))
+    else:
+        cpu = torch.device("cpu")
+        sampler = FixedCorruptions(
+            make_sampler(cfg, ds, cpu).corruptions(gen, batch, mask))
+    step = make_step(cfg, model, opt, sampler)
     t0 = time.perf_counter()
     dev_state, dev_m = step(_state_on(start, dev), batch.to(dev), mask.to(dev))
     _sync(dev)
@@ -382,30 +535,30 @@ def step_against_cpu(cfg, ds, model, opt, start, dev, tag="5") -> None:
     cpu_state, cpu_m = step(_state_on(start, torch.device("cpu")), batch, mask)
     t2 = time.perf_counter()
     nv_dev, nv_cpu = int(dev_m.nviolations), int(cpu_m.nviolations)
-    with torch.no_grad():
-        p = {k: v.to(dev) for k, v in start.params.items()}
-        r = model.gather_rows(p, *(batch.to(dev)[:, i] for i in range(3)))
-        gp = model.score_from_rows(r, {})
-        near = sum(
-            int(((model.score_pool(r, p["E"][pool.to(dev)], {}, mode)
-                  + cfg.margin - gp[:, None]).abs() < 1e-4).sum())
-            for mode in (0, 1)
-        )
+    near = near_margin(cfg, model, {k: v.to(dev) for k, v in start.params.items()},
+                       batch.to(dev), sampler)
     log(f"[{tag}] {cfg.model}: violations card {nv_dev} cpu {nv_cpu}; pairs "
         f"within 1e-4 of the margin {near}; step {t1 - t0:.3f} s card, "
         f"{t2 - t1:.3f} s cpu")
-    for name in start.params:
-        diff = float((dev_state.params[name].cpu() - cpu_state.params[name]).abs().max())
-        cpu_p2 = cpu_state.opt_state[name]["p2"]
-        dp2 = float((dev_state.opt_state[name]["p2"].cpu() - cpu_p2).abs().max())
-        p2_max = float(cpu_p2.max())
-        moved = float((cpu_state.params[name] - start.params[name].cpu()).abs().max())
-        log(f"[{tag}] max|d{name}| {diff:.3e}  max|d p2[{name}]| {dp2:.3e} "
-            f"(max p2 {p2_max:.3e}; max update of {name} {moved:.3e})")
-        # p2 sums squares and grows with training: held relative to its size
-        check(diff <= STEP_TOL and dp2 <= STEP_TOL * max(1.0, p2_max),
-              f"one {cfg.model} step card vs CPU: {name} within {STEP_TOL}")
-    check(nv_dev == nv_cpu, f"one {cfg.model} step card vs CPU: same violation count")
+    others = [("cpu", cpu_state, nv_cpu)]
+    if unique_too:
+        u_state, u_m = make_step(cfg, model, opt, sampler, aggregate="unique")(
+            _state_on(start, dev), batch.to(dev), mask.to(dev))
+        others.append(("card unique", u_state, int(u_m.nviolations)))
+    for what, other, nv in others:
+        for name in start.params:
+            want = other.params[name].to(dev)
+            diff = float((dev_state.params[name] - want).abs().max())
+            other_p2 = other.opt_state[name]["p2"].to(dev)
+            dp2 = float((dev_state.opt_state[name]["p2"] - other_p2).abs().max())
+            p2_max = float(other_p2.max())
+            moved = float((want - start.params[name].to(dev)).abs().max())
+            log(f"[{tag}] against {what}: max|d{name}| {diff:.3e}  max|d p2[{name}]| "
+                f"{dp2:.3e} (max p2 {p2_max:.3e}; max update of {name} {moved:.3e})")
+            # p2 sums squares and grows with training: held relative to its size
+            check(diff <= STEP_TOL and dp2 <= STEP_TOL * max(1.0, p2_max),
+                  f"one {cfg.model} step card vs {what}: {name} within {STEP_TOL}")
+        check(nv_dev == nv, f"one {cfg.model} step card vs {what}: same violation count")
 
 
 def evaluate(ds, model, state, dev, tag="6") -> None:
@@ -433,20 +586,25 @@ def main() -> int:
     build()
     checks = {"segment_sum": segment_sum_checks(dev),
               "segment_outer_sum": segment_outer_sum_checks(dev)}
-    ds = synthetic_kg(DATA.n_entities, DATA.n_relations, DATA.n_train,
-                      n_test=DATA.n_test, seed=DATA.seed, clustered=False)
+    graphs = {name: synthetic_kg(g.n_entities, g.n_relations, g.n_train,
+                                 n_test=g.n_test, seed=g.seed, clustered=False)
+              for name, g in (("fb15k", DATA), ("wn18", WN18))}
     launches = dict.fromkeys(KERNELS, 0)
     trained = {}
-    for cfg, tag in ((TRANSE, "4"), (RESCAL_PAIRWISE, "4b"), (RESCAL_POINTWISE, "4c")):
-        *run, counts = train(cfg, ds, dev, tag)
+    for cfg, tag in PATHS:
+        *run, counts = train(cfg, graphs[cfg.data], dev, tag)
         check(counts == expected_launches(cfg),
-              f"{cfg.model} {cfg.loss}: launches {counts}, want {expected_launches(cfg)}")
+              f"{cfg.model} {cfg.loss} {cfg.sampler}: launches {counts}, "
+              f"want {expected_launches(cfg)}")
         for name in KERNELS:
             launches[name] += counts[name]
         trained.setdefault(cfg.model, (cfg, *run))
-    for (cfg, model, opt, state0, state), tag in zip(trained.values(), ("", "b")):
+    for (cfg, model, opt, state0, state), tag in zip(trained.values(),
+                                                     ("", "b", "c", "d")):
         start = state0._replace(opt_state=state.opt_state)
-        step_against_cpu(cfg, ds, model, opt, start, dev, "5" + tag)
+        ds = graphs[cfg.data]
+        step_against_cpu(cfg, ds, model, opt, start, dev, "5" + tag,
+                         unique_too=cfg.model == "hole")
         evaluate(ds, model, state, dev, "6" + tag)
     log(json.dumps({"kernels": [{
         "name": name,

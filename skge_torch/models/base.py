@@ -6,7 +6,10 @@ pass around. A model contributes:
 
 - `init_params(generator)`: parameter construction on the generator's device.
 - `slot_spec()`: which parameter table is gathered by which triple role.
-- `score_from_rows(rows, dense)`: scoring from gathered rows.
+- `score_from_rows(rows, dense)`: scoring from gathered rows. Rows may
+  carry extra leading axes that broadcast against each other: the fused
+  pairwise step scores the corruptions of one mode as one (n, B, ·) stack
+  against the positives' (B, ·) rows.
 - `score_pool` / `score_all_o` / `score_all_s`: batched sweeps against a
   shared negative pool and against every entity.
 
@@ -44,6 +47,13 @@ ACTIVATIONS: Mapping[str, Tuple[Callable, Callable]] = {
 def acc_dtype(x: torch.Tensor) -> torch.dtype:
     """Matmul accumulation dtype: at least float32, never below the input's."""
     return torch.promote_types(x.dtype, torch.float32)
+
+
+def mxu_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Matmul with >= fp32 accumulation (TF32 must be off on the card for
+    this to hold)."""
+    acc = acc_dtype(a)
+    return torch.matmul(a.to(acc), b.to(acc))
 
 
 def nunif(generator: torch.Generator, shape: Tuple[int, ...],
@@ -101,10 +111,8 @@ class KGEModel:
         return getattr(torch, self.dtype)
 
     def mxu(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """Scoring matmul with >= fp32 accumulation (TF32 must be off on
-        the card for this to hold)."""
-        acc = acc_dtype(a)
-        return torch.matmul(a.to(acc), b.to(acc))
+        """Scoring matmul, `mxu_dot`."""
+        return mxu_dot(a, b)
 
     # --- interface ---
     def slot_spec(self) -> SlotSpec:

@@ -52,7 +52,7 @@ class RESCAL(KGEModel):
 
     def score_from_rows(self, rows, dense):
         es, wp, eo = _acc(rows["es"], rows["wp"], rows["eo"])
-        return torch.einsum("bi,bij,bj->b", es, wp, eo)
+        return torch.einsum("...i,...ij,...j->...", es, wp, eo)
 
     def score_pool(self, rows, pool_rows, dense, mode):
         """(B, K) pool scores: the (B, d) query (es^T W_p for mode 1, W_p e_o

@@ -1,5 +1,5 @@
-"""Training core of the port: shared-pool margin and logistic gradients,
-sparse updates, train steps and the epoch loop.
+"""Training core of the port: margin and logistic gradients, sparse
+updates, train steps and the epoch loop.
 
     gather rows -> score -> gradient w.r.t. the gathered rows
     -> duplicate-index segment averaging -> sparse optimizer update
@@ -9,25 +9,37 @@ Semantics are those of `skge_tpu.training`:
 - pairwise margin ranking on violating pairs only; a batch with zero
   violations performs NO update at all;
 - the pairwise margin test applies the model's `pairwise_af` first;
-- pointwise logistic loss `sum(logaddexp(0, -y*f))` over the positives
-  and every (positive, pool entity, mode) corruption;
+- pointwise logistic loss `sum(logaddexp(0, -y*f))`, negatives appended
+  to the batch with y = -1;
 - gradients are AVERAGED over duplicate row indices;
 - `rparam * row` L2 regularization on the touched rows of
-  `model.reg_row_params`.
+  `model.reg_row_params`;
+- dense params (ER-MLP's W and C) take the batch's mean gradient.
 
-The generic paths take row gradients from autograd. Models whose pool-pair
-W gradient is low-rank (`factored_pool_grads`, RESCAL) take hand-derived
-paths that keep it factored (`FactoredOcc`) for the outer-product scatter.
+Three families of gradient functions, chosen by the sampler's protocol:
+
+- iid negatives, `corruptions` protocol: `pairwise_grads_fused`, the
+  reference-exact pairs with each base row gathered and scored once;
+- iid negatives, expanded pairs: the generic `pairwise_grads` and
+  `pointwise_grads`;
+- a shared negative pool, `pool` protocol: `pairwise_grads_shared`,
+  `pointwise_grads_shared`, and for models whose pool-pair W gradient is
+  low-rank (`factored_pool_grads`, RESCAL) hand-derived paths that keep it
+  factored (`FactoredOcc`) for the outer-product scatter.
+
+Row gradients come from autograd over the gathered rows, except on the
+factored paths.
 
 Batches are padded to a fixed size and masked, as in the JAX package, so
 every step of an epoch has the same shapes. Random draws (epoch
-permutation, negative pools) come from the `torch.Generator` carried in
+permutation, negatives) come from the `torch.Generator` carried in
 `TrainState`; they do not reproduce JAX's draws, so the parity tests pass
-the JAX package's draws in (`perm=` and a sampler with a `pool` method).
+the JAX package's draws in (`perm=` and samplers that replay them).
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -66,32 +78,198 @@ class StepMetrics(NamedTuple):
     nviolations: torch.Tensor
 
 
-def _shared_leaves(model: KGEModel, params: Params, pos: torch.Tensor,
-                   pool_idx: torch.Tensor):
-    """The rows of each slot, the pool rows and the dense params as
-    autograd leaves, so autograd gives one gradient row per occurrence.
-    Returns (role -> ids, entity param name, rows, pool rows, dense)."""
+def _row_leaves(model: KGEModel, params: Params, s, o, p):
+    """Each slot's gathered rows as an autograd leaf, so autograd gives one
+    gradient row per occurrence."""
+    idx = {"s": s, "o": o, "p": p}
+    return {
+        slot: params[pname][idx[role]].detach().requires_grad_()
+        for slot, pname, role in model.slot_spec()
+    }
+
+
+def _dense_leaves(model: KGEModel, params: Params):
+    return {
+        k: v.detach().requires_grad_()
+        for k, v in model.dense_params(params).items()
+    }
+
+
+def _group_occurrences(model: KGEModel, batches):
+    """Slot gradients -> {pname: (indices, grads, masks)}, concatenated over
+    `batches`, each a (slot grads, (s, o, p), mask (B,))."""
+    occ: dict = {}
+    for slot, pname, role in model.slot_spec():
+        idxs, grads, masks = occ.setdefault(pname, ([], [], []))
+        for slot_grads, (s, o, p), mask in batches:
+            idxs.append({"s": s, "o": o, "p": p}[role])
+            grads.append(slot_grads[slot])
+            masks.append(mask)
+    return {
+        pname: (torch.cat(i), torch.cat(g), torch.cat(m))
+        for pname, (i, g, m) in occ.items()
+    }
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) as `jnp.logaddexp(0, x)`; `F.softplus` turns linear
+    above its threshold and so gives other values."""
+    return torch.logaddexp(x.new_zeros(()), x)
+
+
+def pointwise_grads(
+    model: KGEModel,
+    params: Params,
+    triples: torch.Tensor,  # (B, 3) int64, (s, o, p)
+    ys: torch.Tensor,       # (B,) float +-1
+    mask: torch.Tensor,     # (B,) float {0, 1}
+):
+    """Logistic loss over the (positives + appended negatives) batch.
+    Returns (loss, occ, g_dense); occ = {pname: (indices, grads, mask)}."""
+    s, o, p = triples[:, 0], triples[:, 1], triples[:, 2]
+    rows = _row_leaves(model, params, s, o, p)
+    dense = _dense_leaves(model, params)
+    with torch.enable_grad():
+        f = model.score_from_rows(rows, dense)
+        loss = torch.sum(_softplus(-ys * f) * mask)
+        grads = torch.autograd.grad(loss, [*rows.values(), *dense.values()])
+    g_rows = dict(zip(rows, grads))
+    occ = _group_occurrences(model, [(g_rows, (s, o, p), mask)])
+    n_valid = torch.clamp(torch.sum(mask), min=1.0)
+    g_dense = {k: g / n_valid for k, g in zip(dense, grads[len(rows):])}
+    return loss.detach(), occ, g_dense
+
+
+def pairwise_grads(
+    model: KGEModel,
+    params: Params,
+    pos: torch.Tensor,   # (M, 3) positives, repeated per negative
+    neg: torch.Tensor,   # (M, 3) corrupted triples
+    mask: torch.Tensor,  # (M,) float {0, 1} pair validity (padding, sampler)
+    margin: float,
+):
+    """Margin ranking loss on violating pairs only, over the expanded pair
+    list. Returns (loss, nviol, occ, g_dense); the occurrence mask is the
+    violation mask."""
+    sop_p = (pos[:, 0], pos[:, 1], pos[:, 2])
+    sop_n = (neg[:, 0], neg[:, 1], neg[:, 2])
+    rows_p = _row_leaves(model, params, *sop_p)
+    rows_n = _row_leaves(model, params, *sop_n)
+    dense = _dense_leaves(model, params)
+    af = ACTIVATIONS[model.pairwise_af][0]
+    with torch.enable_grad():
+        gp = af(model.score_from_rows(rows_p, dense))
+        gn = af(model.score_from_rows(rows_n, dense))
+        fm = ((gn + margin > gp) & (mask > 0)).to(gp.dtype).detach()
+        loss = torch.sum(fm * (margin + gn - gp))
+        grads = torch.autograd.grad(
+            loss, [*rows_p.values(), *rows_n.values(), *dense.values()]
+        )
+    n = len(rows_p)
+    occ = _group_occurrences(model, [
+        (dict(zip(rows_p, grads[:n])), sop_p, fm),
+        (dict(zip(rows_n, grads[n:2 * n])), sop_n, fm),
+    ])
+    nviol = torch.sum(fm)
+    g_dense = {
+        k: g / torch.clamp(nviol, min=1.0) for k, g in zip(dense, grads[2 * n:])
+    }
+    return loss.detach(), nviol, occ, g_dense
+
+
+def pairwise_grads_fused(
+    model: KGEModel,
+    params: Params,
+    pos: torch.Tensor,   # (B, 3) int64 positives, NOT repeated
+    corruptions,         # [(mode, replacement (B,), valid (B,)), ...]
+    mask: torch.Tensor,  # (B,) batch validity
+    margin: float,
+):
+    """Structurally fused pairwise gradients: the reference's pairs, each
+    base row gathered and the positive scored once.
+
+    Every sampler corrupts ONE role per negative, so a (positive,
+    corruption) pair shares the positive's rows and score. The per-pair
+    gradients that hit the same row are pre-summed, and the reference's
+    duplicate-index AVERAGING is kept by carrying the structural occurrence
+    COUNTS into the `premasked` aggregation (m_c = pair c's violation mask):
+
+        cnt(s)   = sum_c m_c + sum_{c: mode_c != 0} m_c
+        cnt(o)   = sum_c m_c + sum_{c: mode_c != 1} m_c
+        cnt(rel) = 2 * sum_c m_c
+        cnt(corrupted entity of c) = m_c
+
+    All replacement rows come from ONE gather. The corruptions of one mode
+    are scored as one (n_mode, B, ·) stack, so the number of scoring ops
+    does not grow with the number of negatives; only the summation order of
+    the base rows' gradients differs from the JAX package's loop.
+    """
+    b = pos.shape[0]
+    # one mode's corruptions next to each other: its rows are one view of
+    # the fused gather
+    corr = sorted(corruptions, key=lambda c: c[0])
+    n_by_mode = Counter(mode for mode, _, _ in corr)  # in sorted order
+    all_repl = torch.cat([repl for _, repl, _ in corr])
+    role_idx, epname, rows, crows, dense = _leaves(model, params, pos, all_repl)
+    slot_of_mode = {mode: next(slot for slot, _, role in model.slot_spec()
+                               if role == {0: "s", 1: "o"}[mode]) for mode in n_by_mode}
+    ok = torch.stack([valid > 0 for _, _, valid in corr]) & (mask > 0)
+    af = ACTIVATIONS[model.pairwise_af][0]
+
+    fms = {}  # mode -> (n_mode, B) violation masks
+    with torch.enable_grad():
+        gp = af(model.score_from_rows(rows, dense))  # (B,)
+        loss = 0.0
+        lo = 0
+        for mode, n in n_by_mode.items():
+            stack = crows[lo * b:(lo + n) * b].reshape(n, b, *crows.shape[1:])
+            gn = af(model.score_from_rows({**rows, slot_of_mode[mode]: stack}, dense))
+            fm = ((gn + margin > gp) & ok[lo:lo + n]).to(gp.dtype).detach()
+            fms[mode] = fm
+            loss = loss + torch.sum(fm * (margin + gn - gp))
+            lo += n
+        grads = torch.autograd.grad(loss, [*rows.values(), crows, *dense.values()])
+
+    m_by_mode = {mode: torch.sum(fm, dim=0) for mode, fm in fms.items()}
+    m_sum = sum(m_by_mode.values())
+    nviol = torch.sum(m_sum)
+    counts = {
+        role: m_sum + sum(m for mode, m in m_by_mode.items() if mode != mode_of_role)
+        for role, mode_of_role in (("s", 0), ("o", 1))
+    }
+    counts["p"] = 2.0 * m_sum
+    occ = _group_slots(
+        model, role_idx, epname, dict(zip(rows, grads)), counts,
+        all_repl, grads[len(rows)], torch.cat(list(fms.values())).reshape(-1),
+    )
+    g_dense = {
+        k: g / torch.clamp(nviol, min=1.0)
+        for k, g in zip(dense, grads[len(rows) + 1:])
+    }
+    return loss.detach(), nviol, occ, g_dense
+
+
+def _leaves(model: KGEModel, params: Params, pos: torch.Tensor,
+            ent_idx: torch.Tensor):
+    """The rows of each slot, the entity rows `ent_idx` (a shared pool, or
+    every corruption's replacement) and the dense params as autograd
+    leaves. Returns (role -> ids, entity param name, rows, entity rows,
+    dense)."""
     role_idx = {"s": pos[:, 0], "o": pos[:, 1], "p": pos[:, 2]}
     slot_by_role = {role: (slot, pname) for slot, pname, role in model.slot_spec()}
     epname = slot_by_role["s"][1]
     if epname != slot_by_role["o"][1]:
-        raise ValueError("the shared pool needs one entity table")
-    rows = {
-        slot: params[pname][role_idx[role]].detach().requires_grad_()
-        for slot, pname, role in model.slot_spec()
-    }
-    pool_rows = params[epname][pool_idx].detach().requires_grad_()
-    dense = {
-        k: v.detach().requires_grad_()
-        for k, v in model.dense_params(params).items()
-    }
-    return role_idx, epname, rows, pool_rows, dense
+        raise ValueError("subjects and objects must share one entity table")
+    rows = _row_leaves(model, params, role_idx["s"], role_idx["o"], role_idx["p"])
+    ent_rows = params[epname][ent_idx].detach().requires_grad_()
+    return role_idx, epname, rows, ent_rows, _dense_leaves(model, params)
 
 
-def _group_shared(model: KGEModel, role_idx, epname, g_rows, counts,
-                  pool_idx, g_pool, pool_counts):
-    """{pname: (ids, grads, counts)} over the slots, then the pool rows
-    appended to the entity table's list; `counts` maps role -> (B,)."""
+def _group_slots(model: KGEModel, role_idx, epname, g_rows, counts,
+                 ent_idx, g_ent, ent_counts):
+    """{pname: (ids, grads, counts)} over the slots, then the entity rows
+    of `_leaves` appended to the entity table's list; `counts` maps
+    role -> (B,)."""
     occ: dict = {}
     for slot, pname, role in model.slot_spec():
         idxs, gs, cs = occ.setdefault(pname, ([], [], []))
@@ -99,9 +277,9 @@ def _group_shared(model: KGEModel, role_idx, epname, g_rows, counts,
         gs.append(g_rows[slot])
         cs.append(counts[role])
     idxs, gs, cs = occ[epname]
-    idxs.append(pool_idx)
-    gs.append(g_pool)
-    cs.append(pool_counts)
+    idxs.append(ent_idx)
+    gs.append(g_ent)
+    cs.append(ent_counts)
     return {
         k: (torch.cat(i), torch.cat(g), torch.cat(c))
         for k, (i, g, c) in occ.items()
@@ -134,7 +312,7 @@ def pairwise_grads_shared(
     Returns (loss, nviol, occ, g_dense) with occ = {pname: (indices, grads,
     counts)}; the grads are already weighted by the violation mask.
     """
-    role_idx, epname, rows, pool_rows, dense = _shared_leaves(
+    role_idx, epname, rows, pool_rows, dense = _leaves(
         model, params, pos, pool_idx
     )
     af = ACTIVATIONS[model.pairwise_af][0]
@@ -167,7 +345,7 @@ def pairwise_grads_shared(
         for role, mode_of_role in (("s", 0), ("o", 1))
     }
     counts["p"] = 2.0 * m_total
-    occ = _group_shared(
+    occ = _group_slots(
         model, role_idx, epname, g_rows, counts,
         pool_idx, g_pool, sum(torch.sum(fm, dim=0) for fm in fms),
     )
@@ -258,12 +436,6 @@ def pairwise_grads_shared_bilinear(
     return loss, nviol, occ, {}
 
 
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """log(1 + e^x) as `jnp.logaddexp(0, x)`; `F.softplus` turns linear
-    above its threshold and so gives other values."""
-    return torch.logaddexp(x.new_zeros(()), x)
-
-
 def pointwise_grads_shared(
     model: KGEModel,
     params: Params,
@@ -286,7 +458,7 @@ def pointwise_grads_shared(
 
     Returns (loss, occ, g_dense), occ as in `pairwise_grads_shared`.
     """
-    role_idx, epname, rows, pool_rows, dense = _shared_leaves(
+    role_idx, epname, rows, pool_rows, dense = _leaves(
         model, params, pos, pool_idx
     )
     mask = mask.to(acc_dtype(pool_rows))
@@ -308,7 +480,7 @@ def pointwise_grads_shared(
         for role, mode_of_role in (("s", 0), ("o", 1))
     }
     counts["p"] = (1.0 + k * len(modes)) * mask
-    occ = _group_shared(
+    occ = _group_slots(
         model, role_idx, epname, g_rows, counts, pool_idx, g_pool,
         torch.full((k,), float(len(modes)), dtype=mask.dtype,
                    device=mask.device) * torch.sum(mask),
@@ -485,29 +657,79 @@ def select_shared_pointwise_fn(model: KGEModel):
     return pointwise_grads_shared
 
 
-def _need_pool(sampler, maker: str) -> None:
-    if not hasattr(sampler, "pool"):
-        raise ValueError(f"{maker} needs a sampler with a pool method")
+def make_pairwise_update(
+    model: KGEModel, opt: Optimizer, margin: float, aggregate: str = "unique"
+):
+    """Pre-sampled pairwise update: (state, pos_rep, neg, pair_mask) ->
+    (state, metrics), through the generic `pairwise_grads`."""
+
+    def update(state: TrainState, pos_rep, neg, pair_mask):
+        loss, nviol, occ, g_dense = pairwise_grads(
+            model, state.params, pos_rep, neg, pair_mask, margin
+        )
+        params, opt_state = apply_gradients(
+            model, opt, state.params, state.opt_state, occ, g_dense, aggregate
+        )
+        new_state = TrainState(params, opt_state, state.generator, state.step + 1)
+        return new_state, StepMetrics(loss=loss, nviolations=nviol)
+
+    return update
+
+
+def make_pointwise_update(model: KGEModel, opt: Optimizer, aggregate: str = "unique"):
+    """Pre-sampled pointwise update: (state, triples, ys, mask) -> (state,
+    metrics), through the generic `pointwise_grads`."""
+
+    def update(state: TrainState, triples, ys, mask):
+        loss, occ, g_dense = pointwise_grads(model, state.params, triples, ys, mask)
+        params, opt_state = apply_gradients(
+            model, opt, state.params, state.opt_state, occ, g_dense, aggregate
+        )
+        new_state = TrainState(params, opt_state, state.generator, state.step + 1)
+        return new_state, StepMetrics(loss=loss, nviolations=torch.zeros_like(loss))
+
+    return update
 
 
 def make_pairwise_step(
     model: KGEModel,
     opt: Optimizer,
-    sampler,  # has .pool(generator, pos, mask) -> (K,) ids and .modes
+    sampler,
     margin: float,
     aggregate: str = "unique",
+    fused: bool = True,
 ):
-    """One pairwise step against a shared negative pool: draw the pool,
-    rank, update on violations. Only `pool`-protocol samplers so far."""
-    _need_pool(sampler, "make_pairwise_step")
-    grads_fn = select_shared_pairwise_fn(model)
+    """One pairwise step: sample negatives, rank, update on violations.
+
+    With `fused` set, a sampler with the `pool` protocol
+    (`SharedNegativeSampler`) takes the shared-pool path and one with the
+    `corruptions` protocol (every iid sampler) the fused path,
+    `pairwise_grads_fused`. `fused=False`, or a sampler with neither
+    protocol, takes the generic path over the sampler's expanded pairs: the
+    same math, more gathers and scatters.
+    """
+    if fused and hasattr(sampler, "pool"):
+        shared_fn = select_shared_pairwise_fn(model)
+
+        def grads_fn(state, batch, mask):
+            pool_idx = sampler.pool(state.generator, batch, mask)
+            return shared_fn(model, state.params, batch, pool_idx, mask, margin,
+                             modes=sampler.modes)
+    elif fused and hasattr(sampler, "corruptions"):
+        def grads_fn(state, batch, mask):
+            corr = sampler.corruptions(state.generator, batch, mask)
+            return pairwise_grads_fused(model, state.params, batch, corr, mask,
+                                        margin)
+    else:
+        update = make_pairwise_update(model, opt, margin, aggregate)
+
+        def step(state: TrainState, batch: torch.Tensor, mask: torch.Tensor):
+            return update(state, *sampler(state.generator, batch, mask))
+
+        return step
 
     def step(state: TrainState, batch: torch.Tensor, mask: torch.Tensor):
-        pool_idx = sampler.pool(state.generator, batch, mask)
-        loss, nviol, occ, g_dense = grads_fn(
-            model, state.params, batch, pool_idx, mask, margin,
-            modes=sampler.modes,
-        )
+        loss, nviol, occ, g_dense = grads_fn(state, batch, mask)
         params, opt_state = apply_gradients(
             model, opt, state.params, state.opt_state, occ, g_dense,
             aggregate, premasked=True,
@@ -521,13 +743,25 @@ def make_pairwise_step(
 def make_pointwise_step(
     model: KGEModel,
     opt: Optimizer,
-    sampler,  # has .pool(generator, pos, mask) -> (K,) ids and .modes
+    sampler,
     aggregate: str = "unique",
 ):
-    """One pointwise step against a shared negative pool: draw the pool,
-    logistic loss over the positives and every pool corruption. Only
-    `pool`-protocol samplers so far. `nviolations` is 0 (smooth loss)."""
-    _need_pool(sampler, "make_pointwise_step")
+    """One pointwise step, logistic loss. A `pool`-protocol sampler takes
+    the shared-pool path; any other sampler's expanded negatives are
+    appended to the batch with y = -1. `nviolations` is 0 (smooth loss)."""
+    if not hasattr(sampler, "pool"):
+        update = make_pointwise_update(model, opt, aggregate)
+
+        def step(state: TrainState, batch: torch.Tensor, mask: torch.Tensor):
+            _, neg, pair_mask = sampler(state.generator, batch, mask)
+            ys = torch.ones(batch.shape[0] + neg.shape[0], dtype=model.tdtype,
+                            device=batch.device)
+            ys[batch.shape[0]:] = -1.0
+            return update(state, torch.cat([batch, neg]), ys,
+                          torch.cat([mask, pair_mask]))
+
+        return step
+
     grads_fn = select_shared_pointwise_fn(model)
 
     def step(state: TrainState, batch: torch.Tensor, mask: torch.Tensor):

@@ -231,11 +231,16 @@ def test_dense_rescal_step_launches_each_kernel_wrapper(monkeypatch):
 
 @pytest.mark.parametrize("loss", ["pairwise", "pointwise"])
 def test_step_dispatch(loss, monkeypatch):
-    """The steps route RESCAL to the factored paths and TransE to the
-    generic ones; both need a pool sampler."""
+    """On a shared pool the steps route RESCAL to the factored paths and
+    TransE to the generic ones; an iid sampler takes the reference-exact
+    paths (the fused pairwise one, the appended-negatives pointwise one)."""
+    from skge_torch import RandomModeSampler
+
     hits = []
-    names = {"pairwise": ("pairwise_grads_shared_bilinear", "pairwise_grads_shared"),
-             "pointwise": ("pointwise_grads_shared_bilinear", "pointwise_grads_shared")}
+    names = {"pairwise": ("pairwise_grads_shared_bilinear", "pairwise_grads_shared",
+                          "pairwise_grads_fused"),
+             "pointwise": ("pointwise_grads_shared_bilinear", "pointwise_grads_shared",
+                           "pointwise_grads")}
     for name in names[loss]:
         orig = getattr(training, name)
 
@@ -245,9 +250,10 @@ def test_step_dispatch(loss, monkeypatch):
 
         monkeypatch.setattr(training, name, spy)
     opt = AdaGrad(lr=0.1)
-    sampler = SharedNegativeSampler(N_E, k=K)
+    pool = SharedNegativeSampler(N_E, k=K)
     pos, _, mask = batch_and_pool(8)
-    for model in (RESCAL(N_E, N_R, D), TransE(N_E, N_R, D)):
+    for model, sampler in ((RESCAL(N_E, N_R, D), pool), (TransE(N_E, N_R, D), pool),
+                           (RESCAL(N_E, N_R, D), RandomModeSampler(N_E))):
         if loss == "pairwise":
             step = make_pairwise_step(model, opt, sampler, MARGIN)
         else:
@@ -256,9 +262,6 @@ def test_step_dispatch(loss, monkeypatch):
         state, m = step(state, torch.as_tensor(pos), torch.as_tensor(mask))
         assert state.step == 1 and bool(torch.isfinite(m.loss))
     assert hits == list(names[loss])
-    make = make_pairwise_step if loss == "pairwise" else make_pointwise_step
-    with pytest.raises(ValueError):
-        make(RESCAL(N_E, N_R, D), opt, object(), *((MARGIN,) if loss == "pairwise" else ()))
     with pytest.raises(ValueError):
         training.apply_gradients(RESCAL(N_E, N_R, D), opt, {}, {}, {}, {}, "sparse")
 
