@@ -28,13 +28,25 @@ Phases, each fatal:
 1. environment: versions, the card's name and power limit; no GPU -> exit 2;
 2. build both kernels from source with nvcc, in parallel;
 3. each kernel against its plain PyTorch version on the card, at the
-   paths' shapes and at edge shapes, and both timed; `segment_sum` also
-   at the iid TransE step's 91,808 occurrences;
+   paths' shapes and at edge shapes, and timed beside its bound (the bytes
+   it must move at 3.35 TB/s, or its fp32 operations at 67 TFLOP/s).
+   `segment_sum` on its 16-byte path (D = 152) and its scalar path (D =
+   151, a misaligned view, D = 1), within 1e-5, also at the iid TransE
+   step's 91,808 occurrences, and timed beside `index_add_` alone;
+   `segment_sum`'s scalar path also timed alone at D = 151 and at RESCAL's
+   W counts (D = 1); `segment_outer_sum` equal bit for bit to its in-order
+   plain version and to itself in a second call, also at ranks 1, 3 and 4,
+   d = 37, 12 and 1,100, and with half of the occurrences on one row at
+   ranks 1, 3 and 4; timed at WN18's 18 relations, with half and with all
+   of the occurrences on one row and with Zipf-distributed ids, beside its
+   grouping alone;
 4. training, each path with the launch counts set to 0 just before it and
-   read just after, exact launch counts, finite losses and params on the
+   read just after, exact launch counts (every gradient scatter on K1's
+   16-byte path), finite losses and params on the
    card: TransE (4), RESCAL pairwise (4b), 2 epochs of 100 steps each;
    RESCAL pointwise 10 steps (4c); iid TransE (4d), HolE (4e) and ER-MLP
-   (4f), 2 epochs of 100 steps each, with the device's busy time per step;
+   (4f), 2 epochs of 100 steps each, with the device's busy time per step
+   (also for 4b);
    HolE's LCWA, corrupted, pointwise and k=4,096 paths, 10
    steps each (4g);
 5. one step on the card against the same step on the CPU, TransE (5),
@@ -48,6 +60,11 @@ Prints one JSON line with the kernel table, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py          # from the root of the repository
+
+`--kernel-times` runs phases 1-2 and phase 3's timings alone, on the same
+inputs and without the checks, and prints no result line. Copied into an
+older tree of the repository and run there, it times that tree's kernels
+at this tree's shapes: parent against change on one card.
 """
 
 from __future__ import annotations
@@ -86,9 +103,10 @@ TRANSE = SimpleNamespace(
 )
 # the RESCAL slice: `python bench.py --model rescal --ncomp 100`
 RESCAL_PAIRWISE = SimpleNamespace(**{**vars(TRANSE), "model": "rescal",
-                                     "ncomp": 100, "rparam": 0.0})
+                                     "ncomp": 100, "rparam": 0.0, "profile": True})
 RESCAL_POINTWISE = SimpleNamespace(**{**vars(RESCAL_PAIRWISE),
-                                      "loss": "pointwise", "steps": 10})
+                                      "loss": "pointwise", "steps": 10,
+                                      "profile": False})
 # the iid slice. `bench.py --sampler random-mode --negatives 8`: 16 pairs
 # per positive
 TRANSE_IID = SimpleNamespace(**{**vars(TRANSE), "sampler": "random-mode",
@@ -122,7 +140,11 @@ KERNELS = {  # name: (wrapper module, source, the TPU kernel it replaces)
                           "skge_tpu/ops/pallas_outer.py:128"),
 }
 RTOL = ATOL = 1e-5  # segment_sum: fp32 sums in atomic order, as in tests/test_pallas.py
-OUTER_TOL = dict(rtol=2e-5, atol=2e-4)  # segment_outer_sum, as in tests/test_factored.py
+# the least time of a call: its bytes at the HBM rate, or its fp32
+# operations at the rate outside the tensor cores (H100 SXM data sheet)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+VECTOR = "segment_sum 16-byte path"  # the launch count of K1's float4 path
 # one step, card against CPU, params and p2. The step starts from warm
 # AdaGrad accumulators: from p2 = 0 an update is lr*g/max(|g|, 1e-6), which
 # turns an fp32 difference d in a gradient below 1e-6 into a param
@@ -185,132 +207,224 @@ def call_ms(fn, inputs, n=50):
     return statistics.median(s.elapsed_time(e_) for s, e_ in pairs)
 
 
-def device_ms(fn, inputs, n=50):
+def device_ms(fn, inputs, n=50, tries=3):
     """Per call, the card's own time: the summed durations of every kernel
-    and memset the calls ran (torch.profiler), no host time."""
+    and memset the calls ran (torch.profiler), no host time. A profile that
+    saw no kernel at all (the profiler now and then drops a profile's
+    device records) is taken again, up to `tries` times."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n):
-            fn(*inputs)
-        torch.cuda.synchronize()
-    us = sum(e.device_time for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(us > 0, "the profiler saw the card's kernels")
-    return us / n / 1e3
+    for attempt in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                fn(*inputs)
+            torch.cuda.synchronize()
+        us = sum(e.device_time for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / n / 1e3
+        log(f"[3] the profiler saw no kernel of {n} calls (try {attempt + 1} of {tries})")
+    check(False, "the profiler saw the card's kernels")
 
 
-def time_against_plain(kernel, plain, inputs, what) -> tuple[float, float]:
-    """Medians of 4 alternating rounds (plain, kernel, kernel, plain) of 50
-    calls; returns (kernel, plain) device ms per call."""
-    fns = {"kernel": kernel, "plain": plain}
-    for fn in fns.values():
-        call_ms(fn, inputs, 10)  # warm-up
+def time_rounds(fns, inputs, what, n=50, n_plain=None) -> dict:
+    """Medians of 4 alternating rounds (in order, then reversed, twice) of
+    `n` calls of each of `fns` {name: fn} (`n_plain` of "plain", whose
+    many small ops make the profiler slow); returns {name: device ms per
+    call}."""
+    t0 = time.perf_counter()
+    calls = {name: n_plain if name == "plain" and n_plain else n for name in fns}
+    for name, fn in fns.items():
+        call_ms(fn, inputs, min(calls[name], 10))  # warm-up
     times = {(name, how): [] for name in fns for how in ("device", "call")}
-    for order in (("plain", "kernel"), ("kernel", "plain")) * 2:
+    for order in (list(fns), list(fns)[::-1]) * 2:
         for name in order:
-            times[name, "device"].append(device_ms(fns[name], inputs))
-            times[name, "call"].append(call_ms(fns[name], inputs))
+            times[name, "device"].append(device_ms(fns[name], inputs, calls[name]))
+            times[name, "call"].append(call_ms(fns[name], inputs, calls[name]))
     med = {key: statistics.median(v) for key, v in times.items()}
-    log(f"[3] {what}, medians of 4 rounds of 50 calls: device time "
-        f"kernel {med['kernel', 'device']:.4f} ms, plain "
-        f"{med['plain', 'device']:.4f} ms; per-call time with host "
-        f"kernel {med['kernel', 'call']:.4f} ms, plain {med['plain', 'call']:.4f} ms")
-    return med["kernel", "device"], med["plain", "device"]
+    log(f"[3] {what}, medians of 4 rounds of " + ", ".join(
+        f"{calls[name]} calls of {name}" for name in fns) + ": device time " + ", ".join(
+        f"{name} {med[name, 'device']:.4f} ms" for name in fns)
+        + "; per-call time with host " + ", ".join(
+        f"{name} {med[name, 'call']:.4f} ms" for name in fns)
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    return {name: med[name, "device"] for name in fns}
+
+
+def bound(nbytes, flops) -> tuple[float, str]:
+    """(ms, what bounds it): the larger of the bytes at the HBM rate and the
+    operations at the fp32 rate."""
+    by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / FP32_FLOP_PER_S
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def timed_shape(what, times, nbytes, flops) -> dict:
+    """One timed shape of a kernel: its times, its bound and its share."""
+    b_ms, b_by = bound(nbytes, flops)
+    shape = {"shape": what, "ms": times["kernel"], "plain_ms": times.get("plain"),
+             "library_ms": times.get("library"), "bound_ms": b_ms, "bound_by": b_by,
+             "bound_share": b_ms / times["kernel"]}
+    if "grouping" in times:  # K2's index preparation, part of "ms"
+        shape["grouping_ms"] = times["grouping"]
+    log(f"[3] {what}: bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.2f} MB, "
+        f"{flops / 1e6:.1f} MFLOP), kernel at {100 * shape['bound_share']:.1f}% of it")
+    return shape
 
 
 def _batch_size(cfg, n=None) -> int:
     return -(-(DATA.n_train if n is None else n) // cfg.nbatches)
 
 
-def segment_sum_checks(dev) -> tuple[float, float, float]:
+def check_segment_sum(name, idx, grads, nrows, vector) -> float:
+    """One case: `segment_sum` against `segment_sum_reference` on the same
+    card inputs, on the path it must take; returns the max abs error."""
+    t, d = grads.shape
+    before = cuda_segment.vector_launches
+    got = cuda_segment.segment_sum(idx, grads, nrows)
+    want = cuda_segment.segment_sum_reference(idx, grads, nrows)
+    torch.cuda.synchronize()
+    check(got.shape == (nrows, d), f"segment_sum shape for {name}")
+    check(cuda_segment.vector_launches - before == int(vector and t > 0),
+          f"segment_sum took the {'16-byte' if vector else 'scalar'} path ({name})")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    ok = bool(torch.allclose(got, want, rtol=RTOL, atol=ATOL))
+    log(f"[3] segment_sum {name:24s} T={t:6d} R={nrows:6d} D={d:6d} "
+        f"{'16-byte' if vector else 'scalar '}  max|err|={err:.3e}  "
+        f"{'ok' if ok else 'MISMATCH'}")
+    check(ok, f"segment_sum against its plain version ({name})")
+    return err
+
+
+def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
     """`segment_sum` against `segment_sum_reference` on the same card
-    inputs; returns (max abs error, kernel ms, plain ms) at the TransE
-    slice's shape. Also times the iid TransE step's shape: s, o and 16
-    corruptions into E, and R, in one scatter."""
+    inputs, on the 16-byte and the scalar path (`verify`); returns (max abs
+    error, [timed shapes]): the TransE slice's shape first, then the iid
+    TransE step's (s, o and 16 corruptions into E, and R, in one scatter),
+    each beside `index_add_` alone on the same (in-range) ids."""
     e, r = DATA.n_entities, DATA.n_relations
-    t_slice, rows, width = 3 * _batch_size(TRANSE) + TRANSE.k, e + r, TRANSE.ncomp + 1
+    width = TRANSE.ncomp + 1 + (-(TRANSE.ncomp + 1) % 4)  # aggregate's padded count channel
+    t_slice, rows = 3 * _batch_size(TRANSE) + TRANSE.k, e + r
     t_iid = (3 + 2 * TRANSE_IID.negatives) * _batch_size(TRANSE_IID)
     gen = torch.Generator(device=dev).manual_seed(1)
-    cases = [
-        ("slice", t_slice, rows, width, 0, rows),
-        ("iid", t_iid, rows, width, 0, rows),
-        ("ids<0 and >=R dropped", t_slice, rows, width, -50, rows + 50),
-        ("ragged last block", 1001, 40, 37, 0, 40),
-        ("D=1", t_slice, rows, 1, 0, rows),
-        ("wide D=22500", 64, 17, 22_500, 0, 19),
-        ("T=0", 0, 10, 5, 0, 10),
+    cases = [  # name, T, R, D, low id, high id, storage offset, 16-byte path
+        ("slice", t_slice, rows, width, 0, rows, 0, True),
+        ("iid", t_iid, rows, width, 0, rows, 0, True),
+        ("ids<0 and >=R dropped", t_slice, rows, width, -50, rows + 50, 0, True),
+        ("D=151 scalar path", t_slice, rows, width - 1, 0, rows, 0, False),
+        ("misaligned view", t_slice, rows, width, 0, rows, 1, False),
+        ("ragged last block", 1001, 40, 37, 0, 40, 0, False),
+        ("D=1", t_slice, rows, 1, 0, rows, 0, False),
+        ("RESCAL's W counts, D=1", _batch_size(RESCAL_PAIRWISE), r, 1, 0, r, 0, False),
+        ("wide D=22500", 64, 17, 22_500, 0, 19, 0, True),
+        ("T=0", 0, 10, 5, 0, 10, 0, False),
     ]
     worst = 0.0
     timed = {}
-    for name, t, nrows, d, lo, hi in cases:
+    for name, t, nrows, d, lo, hi, shift, vector in cases:
         idx = torch.randint(lo, hi, (t,), generator=gen, device=dev)
-        grads = torch.randn(t, d, generator=gen, device=dev)
-        got = cuda_segment.segment_sum(idx, grads, nrows)
-        want = cuda_segment.segment_sum_reference(idx, grads, nrows)
-        torch.cuda.synchronize()
-        check(got.shape == (nrows, d), f"segment_sum shape for {name}")
-        err = float((got - want).abs().max()) if got.numel() else 0.0
-        worst = max(worst, err)
-        ok = bool(torch.allclose(got, want, rtol=RTOL, atol=ATOL))
-        log(f"[3] segment_sum {name:24s} T={t:6d} R={nrows:6d} D={d:6d}  "
-            f"max|err|={err:.3e}  {'ok' if ok else 'MISMATCH'}")
-        check(ok, f"segment_sum against its plain version ({name})")
-        if name in ("slice", "iid"):
+        grads = torch.randn(t * d + shift, generator=gen, device=dev)[shift:].view(t, d)
+        if verify:
+            worst = max(worst, check_segment_sum(name, idx, grads, nrows, vector))
+        if name in ("slice", "iid", "D=151 scalar path", "RESCAL's W counts, D=1"):
             timed[name] = (idx, grads, nrows)
-    k_ms, p_ms = time_against_plain(
-        cuda_segment.segment_sum, cuda_segment.segment_sum_reference,
-        timed["slice"], f"segment_sum at T={t_slice}, R={rows}, D={width}",
-    )
-    time_against_plain(
-        cuda_segment.segment_sum, cuda_segment.segment_sum_reference,
-        timed["iid"], f"segment_sum at T={t_iid}, R={rows}, D={width} (iid)",
-    )
-    return worst, k_ms, p_ms
+    shapes = []
+    for name, (idx, grads, nrows) in timed.items():
+        t, d = grads.shape
+        table = torch.zeros(nrows, d, device=dev)
+        fns = {"kernel": cuda_segment.segment_sum}
+        if name in ("slice", "iid"):  # the scalar path: the kernel alone
+            fns["plain"] = cuda_segment.segment_sum_reference
+            fns["library"] = lambda i, g, _: table.index_add_(0, i, g)
+        times = time_rounds(fns, timed[name], f"segment_sum at T={t}, R={nrows}, D={d} ({name})")
+        shapes.append(timed_shape(
+            f"T={t}, R={nrows}, D={d}" + ("" if "plain" in fns else ", scalar path"), times,
+            nbytes=8 * t + 4 * t * d + 4 * nrows * d, flops=t * d))
+    return worst, shapes
 
 
-def segment_outer_sum_checks(dev) -> tuple[float, float, float]:
-    """`segment_outer_sum` against `segment_outer_sum_reference` on the same
-    card inputs; returns (max abs error, kernel ms, plain ms) at the RESCAL
-    slice's shape (T = one batch, R = relations, d = ncomp, rank 2). Also
-    times WN18's 18 relations, where ~268 occurrences land on every row."""
+def check_segment_outer_sum(name, idx, us, vs, nrows) -> float:
+    """One case: `segment_outer_sum` bit-equal to
+    `segment_outer_sum_reference` on the same card inputs and to itself in
+    a second call; returns the max abs error."""
+    t, dd = us[0].shape
+    got = cuda_outer.segment_outer_sum(idx, us, vs, nrows)
+    again = cuda_outer.segment_outer_sum(idx, us, vs, nrows)
+    want = cuda_outer.segment_outer_sum_reference(idx, us, vs, nrows)
+    torch.cuda.synchronize()
+    check(got.shape == (nrows, dd, dd), f"segment_outer_sum shape for {name}")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    ok = bool(torch.equal(got, want)) and bool(torch.equal(got, again))
+    counts = torch.bincount(idx[(idx >= 0) & (idx < nrows)], minlength=nrows)
+    long = counts > 64  # rows longer than a window of the kernel's stream
+    log(f"[3] segment_outer_sum {name:22s} T={t:5d} R={nrows:5d} d={dd:4d} "
+        f"rank={len(us)} longest row {int(counts.max()) if t else 0:5d}, "
+        f"{int(long.sum())} rows of > 64 hold {int(counts[long].sum())} of T  "
+        f"{'equal to the plain version and to itself' if ok else 'MISMATCH'}")
+    check(ok, f"segment_outer_sum bit-equal to its plain version and itself ({name})")
+    return err
+
+
+def segment_outer_sum_checks(dev, verify=True) -> tuple[float, list]:
+    """`segment_outer_sum` against `segment_outer_sum_reference` on the
+    same card inputs, bit for bit, and against itself in a second call
+    (`verify`); returns (max abs error, [timed shapes]): the RESCAL
+    slice's shape first (T = one batch, R = relations, d = ncomp, rank 2),
+    then WN18's 18
+    relations (~268 occurrences on every row), half and all of the
+    occurrences on row 0 (the longest serial chain there can be), and
+    Zipf-distributed ids (P(r) ~ 1 / (r + 1): the long rows have
+    neighbouring ids); the plain version is timed at the first only. Each
+    timed shape also times the grouping (`group_by_row`) alone."""
     t_slice, r, d = _batch_size(RESCAL_PAIRWISE), DATA.n_relations, RESCAL_PAIRWISE.ncomp
     gen = torch.Generator(device=dev).manual_seed(2)
-    cases = [
+    cases = [  # name, T, R, d, rank, low id, high id
         ("slice", t_slice, r, d, 2, 0, r),
         ("WN18 R=18", t_slice, 18, d, 2, 0, 18),
+        ("half on row 0", t_slice, 18, d, 2, 0, 18),
+        ("all on row 0", t_slice, 18, d, 2, 0, 1),
+        ("Zipf", t_slice, r, d, 2, 0, r),
         ("ids<0 and >=R dropped", t_slice, r, d, 2, -50, r + 50),
         ("rank 1", t_slice, r, d, 1, 0, r),
         ("ragged T, d=37", 1001, 40, 37, 2, 0, 40),
+        ("d=1100, rank 3", 300, 7, 1100, 3, 0, 7),
+        ("d=12, rank 4", 500, 9, 12, 4, 0, 9),
+        # a long row, walked in slabs, at the other ranks and staging widths
+        ("half on row 0, rank 1", t_slice, 18, d, 1, 0, 18),
+        ("half on row 0, d=37, rank 3", 1001, 5, 37, 3, 0, 5),
+        ("half on row 0, d=12, rank 4", 2000, 9, 12, 4, 0, 9),
         ("T=0", 0, 10, 5, 2, 0, 10),
     ]
     worst = 0.0
     timed = {}
     for name, t, nrows, dd, rank, lo, hi in cases:
         idx = torch.randint(lo, hi, (t,), generator=gen, device=dev)
+        if name.startswith("half on row 0"):
+            idx[torch.randperm(t, generator=gen, device=dev)[: t // 2]] = 0
+        if name == "Zipf":
+            p = 1.0 / torch.arange(1, nrows + 1, device=dev)
+            idx = torch.multinomial(p, t, replacement=True, generator=gen)
         us, vs = ([torch.randn(t, dd, generator=gen, device=dev) for _ in range(rank)]
                   for _ in range(2))
-        got = cuda_outer.segment_outer_sum(idx, us, vs, nrows)
-        want = cuda_outer.segment_outer_sum_reference(idx, us, vs, nrows)
-        torch.cuda.synchronize()
-        check(got.shape == (nrows, dd, dd), f"segment_outer_sum shape for {name}")
-        err = float((got - want).abs().max()) if got.numel() else 0.0
-        worst = max(worst, err)
-        ok = bool(torch.allclose(got, want, **OUTER_TOL))
-        log(f"[3] segment_outer_sum {name:22s} T={t:5d} R={nrows:5d} d={dd:4d} "
-            f"rank={rank}  max|err|={err:.3e}  {'ok' if ok else 'MISMATCH'}")
-        check(ok, f"segment_outer_sum against its plain version ({name})")
-        if name in ("slice", "WN18 R=18"):
+        if verify:
+            worst = max(worst, check_segment_outer_sum(name, idx, us, vs, nrows))
+        if name in ("slice", "WN18 R=18", "half on row 0", "all on row 0", "Zipf"):
             timed[name] = (idx, us, vs, nrows)
-    k_ms, p_ms = time_against_plain(
-        cuda_outer.segment_outer_sum, cuda_outer.segment_outer_sum_reference,
-        timed["slice"], f"segment_outer_sum at T={t_slice}, R={r}, d={d}, rank 2",
-    )
-    time_against_plain(
-        cuda_outer.segment_outer_sum, cuda_outer.segment_outer_sum_reference,
-        timed["WN18 R=18"], f"segment_outer_sum at T={t_slice}, R=18, d={d}, rank 2",
-    )
-    return worst, k_ms, p_ms
+    shapes = []
+    for name, (idx, us, vs, nrows) in timed.items():
+        t, dd = us[0].shape
+        fns = {"kernel": cuda_outer.segment_outer_sum}
+        if hasattr(cuda_outer, "group_by_row"):  # an older tree's K2 takes no grouping
+            fns["grouping"] = lambda i, _u, _v, n: cuda_outer.group_by_row(i, n)
+        if name == "slice":
+            fns["plain"] = cuda_outer.segment_outer_sum_reference
+        times = time_rounds(fns, timed[name], f"segment_outer_sum at T={t}, R={nrows}, "
+                            f"d={dd}, rank 2 ({name})", n_plain=3)
+        shapes.append(timed_shape(
+            f"T={t}, R={nrows}, d={dd}, rank 2"
+            + ("" if name in ("slice", "WN18 R=18") else f", {name}"),
+            times, nbytes=8 * t + 2 * len(us) * 4 * t * dd + 4 * nrows * dd * dd,
+            flops=2 * len(us) * t * dd * dd))
+    return worst, shapes
 
 
 def make_model(cfg, ds):
@@ -421,6 +535,7 @@ def train(cfg, ds, dev, tag="4"):
     state = state0
     for mod, _, _ in KERNELS.values():
         mod.launches = 0
+    cuda_segment.vector_launches = 0
     for e, run in enumerate(runs):
         _sync(dev)
         t0 = time.perf_counter()
@@ -433,6 +548,7 @@ def train(cfg, ds, dev, tag="4"):
             f"{dt:.3f} s  step {1e3 * dt / steps:.3f} ms  "
             f"{scored / dt:.6e} scored triples/s")
     launches = {name: mod.launches for name, (mod, _, _) in KERNELS.items()}
+    launches[VECTOR] = cuda_segment.vector_launches
     if dev.type == "cuda":
         log(f"[{tag}] peak device memory "
             f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
@@ -453,11 +569,13 @@ def expected_launches(cfg) -> dict:
     """Per step: the row params of TransE, HolE and ER-MLP (E and R) share
     one segment_sum, ER-MLP's dense W and C take no scatter; RESCAL's
     shared-pool path runs one segment_outer_sum (W) and two segment_sum (E
-    with its count channel, W's counts)."""
+    with its count channel, W's counts). Every gradient scatter (the one
+    with the count channel, padded to a multiple of 4 columns) takes K1's
+    16-byte path; W's counts (D = 1) the scalar one."""
     steps = cfg.steps or cfg.epochs * cfg.nbatches
     if cfg.model == "rescal":
-        return {"segment_sum": 2 * steps, "segment_outer_sum": steps}
-    return {"segment_sum": steps, "segment_outer_sum": 0}
+        return {"segment_sum": 2 * steps, "segment_outer_sum": steps, VECTOR: steps}
+    return {"segment_sum": steps, "segment_outer_sum": 0, VECTOR: steps}
 
 
 class FixedPool:
@@ -580,25 +698,37 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def main() -> int:
+def main(argv) -> int:
+    if argv not in ([], ["--kernel-times"]):
+        print("usage: python3 chip_smoke.py [--kernel-times]", file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
     smi = environment()
     dev = torch.device("cuda", 0)
     build()
-    checks = {"segment_sum": segment_sum_checks(dev),
-              "segment_outer_sum": segment_outer_sum_checks(dev)}
+    t_build = time.perf_counter()
+    verify = not argv
+    checks = {"segment_sum": segment_sum_checks(dev, verify),
+              "segment_outer_sum": segment_outer_sum_checks(dev, verify)}
+    t_kernels = time.perf_counter()
+    if not verify:  # phase 3's timings alone: no check, no result line
+        log(json.dumps({name: shapes for name, (_, shapes) in checks.items()}))
+        log(smi)
+        return 0
     graphs = {name: synthetic_kg(g.n_entities, g.n_relations, g.n_train,
                                  n_test=g.n_test, seed=g.seed, clustered=False)
               for name, g in (("fb15k", DATA), ("wn18", WN18))}
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = dict.fromkeys([*KERNELS, VECTOR], 0)
     trained = {}
     for cfg, tag in PATHS:
         *run, counts = train(cfg, graphs[cfg.data], dev, tag)
         check(counts == expected_launches(cfg),
               f"{cfg.model} {cfg.loss} {cfg.sampler}: launches {counts}, "
               f"want {expected_launches(cfg)}")
-        for name in KERNELS:
+        for name in launches:
             launches[name] += counts[name]
         trained.setdefault(cfg.model, (cfg, *run))
+    t_train = time.perf_counter()
     for (cfg, model, opt, state0, state), tag in zip(trained.values(),
                                                      ("", "b", "c", "d")):
         start = state0._replace(opt_state=state.opt_state)
@@ -606,6 +736,11 @@ def main() -> int:
         step_against_cpu(cfg, ds, model, opt, start, dev, "5" + tag,
                          unique_too=cfg.model == "hole")
         evaluate(ds, model, state, dev, "6" + tag)
+    t_end = time.perf_counter()
+    log(f"[time] phases 1-2 {t_build - t0:.1f} s, 3 {t_kernels - t_build:.1f} s, "
+        f"4 {t_train - t_kernels:.1f} s (graphs included), 5-6 {t_end - t_train:.1f} s")
+    # each kernel at the TransE or RESCAL slice's shape, its other timed
+    # shapes under "shapes"
     log(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -613,8 +748,9 @@ def main() -> int:
         "replaces": replaces,
         "launches": launches[name],
         "max_abs_err": checks[name][0],
-        "ms": checks[name][1],
-        "plain_ms": checks[name][2],
+        **{key: checks[name][1][0][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_share")},
+        "shapes": checks[name][1],
     } for name, (_, source, replaces) in KERNELS.items()]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
@@ -626,4 +762,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

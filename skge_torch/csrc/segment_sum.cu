@@ -11,17 +11,25 @@
 //
 // Design. The TPU kernel keeps the whole table in VMEM and runs a
 // sequential read-modify-write loop, because the TPU has no fast scatter.
-// Hopper has hardware fp32 atomics in L2, so this kernel is one thread per
-// (occurrence, column): columns run along threadIdx.x (a warp reads 32
-// neighbouring floats of one gradient row, coalesced), occurrences along
-// threadIdx.y and blockIdx.y (a grid-stride loop covers any T), column
-// tiles along blockIdx.x. Each element is one atomicAdd into the table.
+// Hopper has fp32 atomics in L2, so here each thread takes one piece of
+// one gradient row and adds it into the table with one atomic reduction.
+// Two paths:
+// - 16-byte (D % 4 == 0, grads and out 16-byte aligned; the wrapper
+//   decides): a piece is a float4, one 16-byte load and one 16-byte
+//   reduction (Hopper's float4 atomicAdd), a quarter of the atomic
+//   operations of a float at a time. The (occurrence, piece) space is
+//   flattened, so a warp covers neighbouring pieces of one or two rows and
+//   no lane idles on a ragged last column tile.
+// - scalar (any other D, e.g. the D = 1 count scatter): a piece is one
+//   float; columns run along threadIdx.x (a warp reads 32 neighbouring
+//   floats of one row), occurrences along threadIdx.y and blockIdx.y,
+//   column tiles along blockIdx.x.
 //
-// Bound. It moves T*D floats in and does T*D atomic adds; it is bound by
-// atomic traffic to L2 and by device-memory bytes, not by arithmetic.
-// Because atomics land in no fixed order, the fp32 summation order, and so
-// the last bits of the result, vary from run to run. A deterministic
-// sort-plus-segmented-reduce variant is later work.
+// Bound. T*D*4 bytes in (the gradient rows, 55 MB at the iid TransE
+// step's T = 91,808, D = 152) and R*D*4 bytes out: reading the input
+// bounds it. Atomics land in no fixed order, so the fp32 summation order,
+// and so the last bits of the result, vary from run to run; a
+// deterministic sort-plus-segmented-reduce variant is later work.
 //
 // Offsets are 64-bit: T*D reaches ~2e9 for wide (d*d) rows.
 
@@ -31,14 +39,51 @@
 
 namespace {
 
-constexpr int kCols = 32;  // threadIdx.x: one warp across a column tile
-constexpr int kRows = 8;   // threadIdx.y: occurrences per block per pass
+constexpr int kThreads = 256;            // 16-byte path: threads a block
+constexpr int64_t kMaxBlocks = 1 << 20;  // a grid-stride loop covers the rest
+constexpr int kCols = 32;                // scalar path: threadIdx.x, a column tile
+constexpr int kRows = 8;                 // threadIdx.y: occurrences a block a pass
 constexpr int64_t kMaxGridY = 65535;
+
+// q, r = divmod(a, b) for a >= 0, b > 0: in 32 bits where both fit, a
+// fraction of the instructions of a 64-bit division.
+__device__ __forceinline__ void divmod(int64_t a, int64_t b, int64_t& q,
+                                       int64_t& r) {
+  if (((a | b) >> 31) == 0) {
+    q = static_cast<uint32_t>(a) / static_cast<uint32_t>(b);
+  } else {
+    q = a / b;
+  }
+  r = a - q * b;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    segment_sum_f32x4_kernel(const int64_t* __restrict__ idx,
+                             const float4* __restrict__ grads,
+                             float4* __restrict__ out, const int64_t T,
+                             const int64_t pieces, const int64_t R) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  // (t, c) = divmod(piece, pieces), stepped by divmod(stride, pieces)
+  int64_t t, c, dt, dc;
+  divmod(first, pieces, t, c);
+  divmod(stride, pieces, dt, dc);
+  while (t < T) {
+    const int64_t r = idx[t];
+    if (r >= 0 && r < R) atomicAdd(out + r * pieces + c, __ldg(grads + t * pieces + c));
+    t += dt;
+    c += dc;
+    if (c >= pieces) {
+      c -= pieces;
+      ++t;
+    }
+  }
+}
 
 __global__ void segment_sum_f32_kernel(const int64_t* __restrict__ idx,
                                        const float* __restrict__ grads,
-                                       float* __restrict__ out, int64_t T,
-                                       int64_t D, int64_t R) {
+                                       float* __restrict__ out, const int64_t T,
+                                       const int64_t D, const int64_t R) {
   const int64_t c = static_cast<int64_t>(blockIdx.x) * kCols + threadIdx.x;
   if (c >= D) return;
   const int64_t stride = static_cast<int64_t>(gridDim.y) * kRows;
@@ -54,20 +99,33 @@ __global__ void segment_sum_f32_kernel(const int64_t* __restrict__ idx,
 
 extern "C" {
 
+// vector != 0: the 16-byte path; D % 4 == 0 and grads, out 16-byte aligned.
 // Launches on `stream`; returns cudaGetLastError() (0 when launched).
 int skge_segment_sum_f32(const void* idx, const void* grads, void* out,
-                         int64_t T, int64_t D, int64_t R, void* stream) {
+                         int64_t T, int64_t D, int64_t R, int vector,
+                         void* stream) {
+  if (vector && (D % 4 != 0 || reinterpret_cast<uintptr_t>(grads) % 16 != 0 ||
+                 reinterpret_cast<uintptr_t>(out) % 16 != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (T <= 0 || D <= 0 || R <= 0) return 0;
-  const int64_t gx = (D + kCols - 1) / kCols;
-  if (gx > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  int64_t gy = (T + kRows - 1) / kRows;
-  if (gy > kMaxGridY) gy = kMaxGridY;
-  const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
-  const dim3 block(kCols, kRows);
-  segment_sum_f32_kernel<<<grid, block, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(idx), static_cast<const float*>(grads),
-      static_cast<float*>(out), T, D, R);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* i = static_cast<const int64_t*>(idx);
+  if (vector) {
+    int64_t blocks = (T * (D / 4) + kThreads - 1) / kThreads;
+    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+    segment_sum_f32x4_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        i, static_cast<const float4*>(grads), static_cast<float4*>(out), T,
+        D / 4, R);
+  } else {
+    const int64_t gx = (D + kCols - 1) / kCols;
+    if (gx > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+    int64_t gy = (T + kRows - 1) / kRows;
+    if (gy > kMaxGridY) gy = kMaxGridY;
+    const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
+    segment_sum_f32_kernel<<<grid, dim3(kCols, kRows), 0, s>>>(
+        i, static_cast<const float*>(grads), static_cast<float*>(out), T, D, R);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,7 +11,8 @@ negative ids do not wrap. It is the port of `segment_sum_pallas`
   kernel is checked against on the card.
 
 `launches` counts kernel launches, so a run can show that its scatters went
-through the kernel.
+through the kernel; `vector_launches` counts those of them that took the
+kernel's 16-byte path (D % 4 == 0, grads and out 16-byte aligned).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from skge_torch.ops import _build
 
 launches = 0
+vector_launches = 0
 
 
 def segment_sum_reference(
@@ -46,7 +48,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.skge_segment_sum_f32
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [
-            ctypes.c_void_p
+            ctypes.c_int, ctypes.c_void_p
         ]
         fn.restype = ctypes.c_int
         lib.skge_cuda_error_string.argtypes = [ctypes.c_int]
@@ -62,7 +64,7 @@ def segment_sum(
     On a CUDA tensor the kernel's fp32 atomics sum in no fixed order, so the
     last bits vary from run to run.
     """
-    global launches
+    global launches, vector_launches
     if indices.dim() != 1 or grads.dim() != 2:
         raise ValueError(
             f"want indices (T,) and grads (T, D), got {tuple(indices.shape)} "
@@ -94,11 +96,13 @@ def segment_sum(
     out = torch.zeros((num_rows, d), dtype=grads.dtype, device=grads.device)
     if t == 0 or d == 0 or num_rows == 0:
         return out
+    vector = d % 4 == 0 and grads.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     lib = _lib()
     with torch.cuda.device(grads.device):
         err = lib.skge_segment_sum_f32(
             indices.data_ptr(), grads.data_ptr(), out.data_ptr(),
-            t, d, num_rows, torch.cuda.current_stream().cuda_stream,
+            t, d, num_rows, int(vector),
+            torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -106,4 +110,5 @@ def segment_sum(
             + lib.skge_cuda_error_string(err).decode()
         )
     launches += 1
+    vector_launches += vector
     return out

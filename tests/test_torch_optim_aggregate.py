@@ -29,7 +29,11 @@ def occurrences(seed, t, r, feat):
 
 
 @pytest.mark.parametrize("premasked", [False, True])
-@pytest.mark.parametrize("feat", [(7,), (64, 64)], ids=["fused_count", "wide_rows"])
+@pytest.mark.parametrize(
+    "feat", [(7,), (150,), (151,), (3,), (64, 64)],
+    ids=["fused_count", "count_pads_to_152", "count_needs_no_pad", "count_pads_to_4",
+         "wide_rows"],
+)
 def test_segment_mean_dense_matches_jax(feat, premasked):
     r = 9
     idx, grads, mask = occurrences(0, 40, r, feat)

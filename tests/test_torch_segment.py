@@ -2,7 +2,8 @@
 package's Pallas kernel `segment_sum_pallas`, run in interpret mode.
 
 On the CPU the port's wrapper runs its plain version; the CUDA kernel is
-checked against that plain version on the card (marked `cuda`).
+checked against that plain version on the card (marked `cuda`), on its
+16-byte path (D % 4 == 0, aligned) and on its scalar path.
 fp32, tolerance rtol = atol = 1e-5 as in tests/test_pallas.py.
 
 JAX is imported inside the parity test only, so that the card test also
@@ -75,21 +76,28 @@ def test_segment_sum_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     rng = np.random.default_rng(6)
-    for t, r, d, lo, hi in [
-        (15_520, 16_296, 151, 0, 16_296),
-        (15_520, 16_296, 151, -50, 16_346),
-        (1001, 40, 37, 0, 40),
-        (15_520, 16_296, 1, 0, 16_296),
-        (64, 17, 22_500, 0, 19),
-        (0, 10, 5, 0, 10),
+    # (t, r, d, low id, high id, storage offset in floats, 16-byte path)
+    for t, r, d, lo, hi, shift, vector in [
+        (15_520, 16_296, 152, 0, 16_296, 0, True),
+        (91_808, 16_296, 152, 0, 16_296, 0, True),   # the iid TransE step
+        (15_520, 16_296, 152, -50, 16_346, 0, True),
+        (15_520, 16_296, 151, 0, 16_296, 0, False),  # D % 4 != 0
+        (15_520, 16_296, 152, 0, 16_296, 1, False),  # a misaligned view
+        (1001, 40, 37, 0, 40, 0, False),
+        (15_520, 16_296, 1, 0, 16_296, 0, False),
+        (64, 17, 22_500, 0, 19, 0, True),
+        (0, 10, 5, 0, 10, 0, False),
     ]:
         idx = torch.as_tensor(rng.integers(lo, hi, t), device="cuda")
-        g = torch.as_tensor(
-            rng.normal(size=(t, d)).astype(np.float32), device="cuda"
+        flat = torch.as_tensor(
+            rng.normal(size=t * d + shift).astype(np.float32), device="cuda"
         )
-        before = cuda_segment.launches
+        g = flat[shift:].view(t, d)
+        before = cuda_segment.launches, cuda_segment.vector_launches
         got = cuda_segment.segment_sum(idx, g, r)
         torch.cuda.synchronize()
-        assert cuda_segment.launches == before + (1 if t else 0)
+        launched = 1 if t else 0
+        assert (cuda_segment.launches, cuda_segment.vector_launches) == (
+            before[0] + launched, before[1] + (launched if vector else 0))
         want = cuda_segment.segment_sum_reference(idx, g, r)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
