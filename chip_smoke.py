@@ -32,10 +32,10 @@ Phases, each fatal:
    it must move at 3.35 TB/s, or its fp32 operations at 67 TFLOP/s).
    `segment_sum` on its 16-byte path (D = 152) and its scalar path (D =
    151, a misaligned view, D = 1), within 1e-5, also at the iid TransE
-   step's 91,808 occurrences, and timed beside `index_add_` alone;
-   `segment_sum`'s scalar path also timed alone at D = 151 and at RESCAL's
-   W counts (D = 1); `segment_outer_sum` equal bit for bit to its in-order
-   plain version and to itself in a second call, also at ranks 1, 3 and 4,
+   step's 91,808 occurrences and the self-adversarial step's 22,688, and
+   timed beside `index_add_` alone; its scalar path also timed at D = 151
+   and at RESCAL's W counts (D = 1), beside `index_add_`;
+   `segment_outer_sum` equal bit for bit to its in-order plain version and to itself in a second call, also at ranks 1, 3 and 4,
    d = 37, 12 and 1,100, and with half of the occurrences on one row at
    ranks 1, 3 and 4; timed at WN18's 18 relations, with half and with all
    of the occurrences on one row and with Zipf-distributed ids, beside its
@@ -54,7 +54,35 @@ Phases, each fatal:
    `dense_pallas`) and ER-MLP (5d), from the initial params with the
    trained run's AdaGrad accumulators;
 6. filtered ranking of 1,000 held-out triples, TransE (6), RESCAL (6b),
-   HolE (6c) and ER-MLP (6d).
+   HolE (6c) and ER-MLP (6d);
+7. the training surface at full width, through `skge_torch.experiment`'s
+   `Experiment` and the `Trainer`, on FB15k's shape as the CLI builds it
+   (`--synthetic-entities 14951 --synthetic-relations 1345
+   --synthetic-train 483142`), each path with the launch counts set to 0
+   just before it and held to their exact values after, then its warm
+   step and the device's busy time:
+   7a `experiment.py`'s defaults (HolE, random-mode, margin 0.2, ncomp 150)
+      with `--aggregate dense_pallas`, 2 epochs, one validation, the
+      best model's checkpoint (loaded back onto the card) and the metrics
+      JSONL; 1 K1 per step;
+   7b RECIPES.md's self-adversarial recipe (TransE-L2, shared pool of
+      8,192, margin 3.0, lr 0.3, alpha 2.0), 1 epoch; 1 K1 per step;
+   7c RECIPES.md's sampled-CE recipe (HolE, reciprocal relations, Adam lr
+      1e-3, pool of 8,192 drawn by unigram degree), 1 epoch; 1 K1 per step;
+   7d RECIPES.md's CE recipe (RESCAL ncomp 100, reciprocal, Adam lr 1e-3,
+      label smoothing 0.1, cosine schedule with 10 warmup steps), 10
+      steps of its batch; no kernel (every table takes a full update);
+   7e the `Trainer` over RESCAL's shared-pool margin step, 10 steps; 1 K2
+      and 2 K1 per step;
+   7f resume: 7e for 2 epochs with a checkpoint each, the epoch-1 file
+      loaded (the same generator state) and fitted from epoch 1, within
+      1e-5 of the uninterrupted run (K1 sums with atomics);
+   7g learning: TransE ncomp 32 on `synthetic_kg(200, 8, 2000)`, margin
+      0.2, 20 batches, 15 epochs: violations fall to <= 40% of epoch 1's,
+      rows stay in the unit ball;
+   then one step each of 7b, 7c and 7d on the card against the CPU (5e,
+   5f, 5g), from the initial params with the trained run's optimizer
+   state, on the same batch and pool ids, within 1e-5.
 
 Prints one JSON line with the kernel table, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.
@@ -70,6 +98,8 @@ at this tree's shapes: parent against change on one card.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -83,10 +113,13 @@ import torch
 from skge_torch import (ERMLP, RESCAL, AdaGrad, BernoulliSampler,
                         CorruptedSampler, FilteredRankingEval, HolE,
                         LCWASampler, RandomModeSampler, SharedNegativeSampler,
-                        TrainState, TransE, init_state, make_epoch_fn,
-                        make_pairwise_step, make_pointwise_step)
-from skge_torch.data import (bernoulli_probs, sorted_train_keys, synthetic_kg,
-                             type_index_arrays)
+                        TrainConfig, Trainer, TrainState, TransE, init_state,
+                        load_checkpoint, make_epoch_fn, make_pairwise_step,
+                        make_pointwise_step)
+from skge_torch.data import (add_reciprocal_relations, bernoulli_probs,
+                             sorted_train_keys, synthetic_kg, type_index_arrays,
+                             unigram_logits)
+from skge_torch.experiment import Experiment, make_parser
 from skge_torch.models.base import ACTIVATIONS
 from skge_torch.ops import _build, cuda_outer, cuda_segment
 
@@ -150,6 +183,12 @@ VECTOR = "segment_sum 16-byte path"  # the launch count of K1's float4 path
 # turns an fp32 difference d in a gradient below 1e-6 into a param
 # difference of lr*d/1e-6 (RESCAL's E: 1.3e-4 from d ~ 1e-9).
 STEP_TOL = 1e-5
+# phase 7: the training surface, through `skge_torch.experiment` and the
+# `Trainer`, on FB15k's shape as the CLI builds it (`--synthetic-*`)
+FB15K_ARGS = ["--synthetic-entities", "14951", "--synthetic-relations", "1345",
+              "--synthetic-train", "483142"]
+SELFADV_K = 8192  # RECIPES.md's --selfadv and --sampled-ce pools
+OUT = "build/chip_smoke"  # phase 7's checkpoints and metrics
 
 
 def check(ok: bool, what: str) -> None:
@@ -299,16 +338,20 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
     """`segment_sum` against `segment_sum_reference` on the same card
     inputs, on the 16-byte and the scalar path (`verify`); returns (max abs
     error, [timed shapes]): the TransE slice's shape first, then the iid
-    TransE step's (s, o and 16 corruptions into E, and R, in one scatter),
-    each beside `index_add_` alone on the same (in-range) ids."""
+    TransE step's (s, o and 16 corruptions into E, and R, in one scatter)
+    and the self-adversarial step's (k = 8,192), then the scalar path at
+    D = 151 and at RESCAL's W counts (D = 1), each beside `index_add_` alone
+    on the same (in-range) ids."""
     e, r = DATA.n_entities, DATA.n_relations
     width = TRANSE.ncomp + 1 + (-(TRANSE.ncomp + 1) % 4)  # aggregate's padded count channel
     t_slice, rows = 3 * _batch_size(TRANSE) + TRANSE.k, e + r
     t_iid = (3 + 2 * TRANSE_IID.negatives) * _batch_size(TRANSE_IID)
+    t_selfadv = 3 * _batch_size(TRANSE) + SELFADV_K
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = [  # name, T, R, D, low id, high id, storage offset, 16-byte path
         ("slice", t_slice, rows, width, 0, rows, 0, True),
         ("iid", t_iid, rows, width, 0, rows, 0, True),
+        ("selfadv", t_selfadv, rows, width, 0, rows, 0, True),
         ("ids<0 and >=R dropped", t_slice, rows, width, -50, rows + 50, 0, True),
         ("D=151 scalar path", t_slice, rows, width - 1, 0, rows, 0, False),
         ("misaligned view", t_slice, rows, width, 0, rows, 1, False),
@@ -325,19 +368,21 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
         grads = torch.randn(t * d + shift, generator=gen, device=dev)[shift:].view(t, d)
         if verify:
             worst = max(worst, check_segment_sum(name, idx, grads, nrows, vector))
-        if name in ("slice", "iid", "D=151 scalar path", "RESCAL's W counts, D=1"):
+        if name in ("slice", "iid", "selfadv", "D=151 scalar path",
+                    "RESCAL's W counts, D=1"):
             timed[name] = (idx, grads, nrows)
     shapes = []
     for name, (idx, grads, nrows) in timed.items():
         t, d = grads.shape
         table = torch.zeros(nrows, d, device=dev)
         fns = {"kernel": cuda_segment.segment_sum}
-        if name in ("slice", "iid"):  # the scalar path: the kernel alone
+        scalar = name not in ("slice", "iid", "selfadv")
+        if not scalar:  # the plain version at the 16-byte path's shapes
             fns["plain"] = cuda_segment.segment_sum_reference
-            fns["library"] = lambda i, g, _: table.index_add_(0, i, g)
+        fns["library"] = lambda i, g, _: table.index_add_(0, i, g)
         times = time_rounds(fns, timed[name], f"segment_sum at T={t}, R={nrows}, D={d} ({name})")
         shapes.append(timed_shape(
-            f"T={t}, R={nrows}, D={d}" + ("" if "plain" in fns else ", scalar path"), times,
+            f"T={t}, R={nrows}, D={d}" + (", scalar path" if scalar else ""), times,
             nbytes=8 * t + 4 * t * d + 4 * nrows * d, flops=t * d))
     return worst, shapes
 
@@ -579,10 +624,11 @@ def expected_launches(cfg) -> dict:
 
 
 class FixedPool:
-    """A `pool`-protocol sampler that always hands out the same ids."""
+    """A `pool`-protocol sampler that always hands out the same ids; with
+    `logits`, sampled CE corrects for that proposal."""
 
-    def __init__(self, ids, modes=(0, 1)):
-        self.ids, self.modes = ids, modes
+    def __init__(self, ids, modes=(0, 1), logits=None):
+        self.ids, self.modes, self.logits = ids, modes, logits
 
     def pool(self, generator, pos, mask):
         return self.ids.to(pos.device)
@@ -698,6 +744,271 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+def reset_counts() -> None:
+    for mod, _, _ in KERNELS.values():
+        mod.launches = 0
+    cuda_segment.vector_launches = 0
+
+
+def read_counts() -> dict:
+    counts = {name: mod.launches for name, (mod, _, _) in KERNELS.items()}
+    counts[VECTOR] = cuda_segment.vector_launches
+    return counts
+
+
+def _launches(k1, k2, vector) -> dict:
+    return {"segment_sum": k1, "segment_outer_sum": k2, VECTOR: vector}
+
+
+def drive(dev, tag, what, trainer, xs, run, want, scored_per_epoch, launches):
+    """One phase-7 path, `run()` training `trainer` on the triples `xs`:
+    the counts set to 0 just before it and read just after, held to `want`
+    (on the card), and added to `launches`. Logs each epoch's metrics
+    record with its step time and scored triples/s (`bench.py`'s count,
+    `scored_per_epoch`). Returns run's result."""
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    result = run()
+    _sync(dev)
+    counts = read_counts()
+    nb = min(trainer.config.nbatches, len(xs))
+    for r in trainer.metrics.history:
+        log(f"[{tag}] {what} epoch {r['epoch']} ({nb} steps): loss {r['loss']:.6e}  "
+            f"violations {r['nviolations']}  {r['epoch_seconds']:.3f} s  step "
+            f"{1e3 * r['epoch_seconds'] / nb:.3f} ms  "
+            f"{scored_per_epoch / r['epoch_seconds']:.6e} scored triples/s")
+        check(np.isfinite(r["loss"]), f"{tag}: finite loss")
+    log(f"[{tag}] kernel launches {counts}")
+    if dev.type == "cuda":
+        log(f"[{tag}] peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+        check(counts == want, f"{tag} {what}: launches {counts}, want {want}")
+    for name in launches:
+        launches[name] += counts[name]
+    for name, p in trainer.state.params.items():
+        check(p.device.type == dev.type, f"{tag}: params[{name!r}] on {dev}")
+        check(bool(torch.isfinite(p).all()), f"{tag}: params[{name!r}] finite")
+    return result
+
+
+def warm_step(trainer, xs_np, tag, scored_per_epoch, steps=10) -> None:
+    """The path's warm step on the card: host clock over `steps` steps
+    after one of warm-up, from the trained state, with its scored triples/s
+    (`scored_per_epoch` over the epoch's steps), then the device's busy
+    time over 5 steps (`profile`). Not counted in the path's launches."""
+    dev = trainer.device
+    b = -(-len(xs_np) // min(trainer.config.nbatches, len(xs_np)))
+    nbat = min(steps + 1, len(xs_np) // b)
+    batches = torch.as_tensor(xs_np[: nbat * b], dtype=torch.int64,
+                              device=dev).reshape(nbat, b, 3)
+    mask = torch.ones(b, device=dev)
+    step = trainer.make_step()
+    state, _ = step(trainer.state, batches[0], mask)
+    _sync(dev)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        state, _ = step(state, batches[(i + 1) % nbat], mask)
+    _sync(dev)
+    step_ms = 1e3 * (time.perf_counter() - t0) / steps
+    per_step = scored_per_epoch * b / len(xs_np)
+    log(f"[{tag}] warm step {step_ms:.3f} ms (host clock, {steps} steps): "
+        f"{1e3 * per_step / step_ms:.6e} scored triples/s")
+    if dev.type == "cuda":
+        profile(step, state, batches, mask, step_ms, tag)
+
+
+def surface(dev, launches) -> dict:
+    """Phase 7: the training surface at full width (FB15k's shape) through
+    the CLI's `Experiment` and the `Trainer`. Returns {tag: (trainer, its
+    triples)} for the steps against the CPU (5e-5g)."""
+    os.makedirs(OUT, exist_ok=True)
+    runs = {}
+    cpu = ["--cpu"] if dev.type == "cpu" else []  # a rehearsal on the CPU
+
+    # 7a: experiment.py's defaults (HolE, random-mode, margin 0.2, ncomp 150,
+    # 100 batches), one validation, the best model's checkpoint, the metrics
+    fout, metrics = f"{OUT}/7a.npz", f"{OUT}/7a.jsonl"
+    for f in (fout, metrics):
+        if os.path.exists(f):
+            os.unlink(f)
+    exp = Experiment(make_parser().parse_args(cpu + FB15K_ARGS + [
+        "--aggregate", "dense_pallas", "--me", "2", "--test-all", "2",
+        "--fout", fout, "--metrics", metrics]))
+    ds = exp.ds
+    n = len(ds.train)
+
+    tr = exp.trainer
+    result = drive(dev, "7a", "HolE random-mode margin 0.2 (CLI defaults)", tr, ds.train,
+                   exp.run, _launches(200, 0, 200), 2 * 2 * n, launches)
+    check(np.isfinite(result["mrr"]) and 0 < result["mrr"] <= 1, "7a: finite test MRR")
+    log(f"[7a] valid MRR {exp.best_mrr:.6f}; test "
+        + json.dumps({k: round(v, 6) for k, v in result.items()}))
+    with open(metrics) as f:
+        records = [json.loads(line) for line in f]
+    check([r["epoch"] for r in records] == [1, 2], "7a: 2 metrics records")
+    state, meta = load_checkpoint(fout, dev)
+    check(meta["epoch"] == 2 and state.step == 200, "7a: the checkpoint of epoch 2")
+    for name, p in state.params.items():
+        check(p.device == dev and torch.equal(p, exp.best_params[name]),
+              f"7a: checkpoint params[{name!r}] back on the card")
+    warm_step(tr, ds.train, "7a", 2 * 2 * n)
+
+    # 7b: RECIPES.md's selfadv recipe: TransE-L2, shared pool of 8,192
+    exp_b = Experiment(make_parser().parse_args(cpu + FB15K_ARGS + [
+        "--model", "transe", "--l2", "--selfadv", "--sampler", "shared",
+        "--margin", "3.0", "--lr", "0.3", "--k", str(SELFADV_K), "--adv-alpha", "2.0",
+        "--aggregate", "dense_pallas", "--me", "1", "--mode", "none"]))
+
+    tr = exp_b.trainer
+    drive(dev, "7b", "TransE-L2 selfadv k=8192", tr, ds.train, exp_b.run,
+          _launches(100, 0, 100), 2 * 2 * SELFADV_K * n, launches)
+    runs["5e"] = tr, ds.train
+    warm_step(tr, ds.train, "7b", 2 * 2 * SELFADV_K * n)
+
+    # 7c: RECIPES.md's sampled-CE recipe: HolE, reciprocal, Adam, a unigram pool
+    dsr = add_reciprocal_relations(ds)
+    nr = len(dsr.train)
+    logits = unigram_logits(dsr.train, dsr.n_entities)
+    tr = Trainer(HolE(dsr.n_entities, dsr.n_relations, 150),
+                 SharedNegativeSampler(dsr.n_entities, k=SELFADV_K, logits=logits),
+                 TrainConfig(max_epochs=1, loss="sampled_ce", ce_directions=("o",),
+                             optimizer="adam", learning_rate=1e-3,
+                             aggregate="dense_pallas"), device=dev)
+    drive(dev, "7c", "HolE sampled CE k=8192 unigram, reciprocal, Adam", tr, dsr.train,
+          lambda: tr.fit(dsr.train), _launches(100, 0, 100), (SELFADV_K + 1) * nr,
+          launches)
+    runs["5f"] = tr, dsr.train
+    warm_step(tr, dsr.train, "7c", (SELFADV_K + 1) * nr)
+
+    # 7d: RECIPES.md's CE recipe: RESCAL, reciprocal, Adam, label smoothing,
+    # cosine schedule; 10 steps of the recipe's batch
+    b = -(-nr // 100)
+    tr = Trainer(RESCAL(dsr.n_entities, dsr.n_relations, 100), None,
+                 TrainConfig(max_epochs=1, nbatches=10, loss="ce", ce_directions=("o",),
+                             label_smoothing=0.1, optimizer="adam", learning_rate=1e-3,
+                             schedule="cosine", warmup=10), device=dev)
+    xs_d = dsr.train[: 10 * b]
+    drive(dev, "7d", "RESCAL full CE, reciprocal, Adam, cosine", tr, xs_d,
+          lambda: tr.fit(xs_d), _launches(0, 0, 0), dsr.n_entities * len(xs_d), launches)
+    runs["5g"] = tr, xs_d
+    warm_step(tr, xs_d, "7d", dsr.n_entities * len(xs_d), steps=5)
+
+    # 7e: the Trainer over RESCAL's shared-pool margin step: K2 under it
+    b = _batch_size(RESCAL_PAIRWISE)
+    xs_e = ds.train[: 10 * b]
+
+    def rescal_trainer(epochs, **kw):
+        return Trainer(RESCAL(ds.n_entities, ds.n_relations, RESCAL_PAIRWISE.ncomp),
+                       SharedNegativeSampler(ds.n_entities, k=RESCAL_PAIRWISE.k),
+                       TrainConfig(max_epochs=epochs, nbatches=10,
+                                   margin=RESCAL_PAIRWISE.margin,
+                                   aggregate="dense_pallas", **kw), device=dev)
+
+    tr = rescal_trainer(1)
+    drive(dev, "7e", "RESCAL shared-pool margin (Trainer)", tr, xs_e,
+          lambda: tr.fit(xs_e), _launches(20, 10, 10), 2 * 2 * RESCAL_PAIRWISE.k * len(xs_e),
+          launches)
+    warm_step(tr, xs_e, "7e", 2 * 2 * RESCAL_PAIRWISE.k * len(xs_e))
+
+    # 7f: resume. 2 epochs with a checkpoint each; the epoch-1 file loaded and
+    # fitted from epoch 1 lands within STEP_TOL (K1's atomics)
+    ck, ck1 = f"{OUT}/7f.npz", f"{OUT}/7f_epoch1.npz"
+    gen_at_1 = {}
+
+    def keep_epoch_1(trainer):
+        if trainer.epoch == 1:
+            shutil.copyfile(ck, ck1)
+            gen_at_1["state"] = trainer.state.generator.get_state().clone()
+        return True
+
+    whole = rescal_trainer(2, checkpoint_path=ck, checkpoint_every=1)
+    whole.post_epoch.append(keep_epoch_1)
+    reset_counts()
+    final = whole.fit(xs_e)
+    state, meta = load_checkpoint(ck1, dev)
+    check(meta["epoch"] == 1 and state.step == 10, "7f: the epoch-1 checkpoint")
+    check(torch.equal(state.generator.get_state(), gen_at_1["state"]),
+          "7f: the generator state after load equals epoch 1's")
+    resumed = rescal_trainer(2).fit(xs_e, state=state, start_epoch=1)
+    check(resumed.step == final.step == 20, "7f: 20 steps in all")
+    worst = max(float((resumed.params[k] - final.params[k]).abs().max())
+                for k in final.params)
+    log(f"[7f] resumed from the epoch-1 checkpoint against 2 epochs in one run: "
+        f"max|d param| {worst:.3e}")
+    check(worst <= STEP_TOL, f"7f: resumed params within {STEP_TOL}")
+    counts = read_counts()
+    log(f"[7f] kernel launches {counts} for 30 steps")
+    if dev.type == "cuda":
+        check(counts == _launches(60, 30, 30), f"7f: launches {counts}")
+    for name in launches:
+        launches[name] += counts[name]
+
+    # 7g: learning on the card (the recipe of .claude/skills/verify/SKILL.md)
+    small = synthetic_kg(200, 8, 2000, seed=0)
+    tr = Trainer(TransE(200, 8, 32), RandomModeSampler(200),
+                 TrainConfig(max_epochs=15, nbatches=20, margin=0.2,
+                             aggregate="dense_pallas"), device=dev)
+    drive(dev, "7g", "TransE-L1 learning, 15 epochs", tr, small.train,
+          lambda: tr.fit(small.train), _launches(300, 0, 300), 2 * 2 * len(small.train),
+          launches)
+    warm_step(tr, small.train, "7g", 2 * 2 * len(small.train))
+    viol = [r["nviolations"] for r in tr.metrics.history]
+    norm = float(tr.state.params["E"].norm(dim=1).max())
+    log(f"[7g] violations by epoch {viol}; max row norm of E {norm:.7f}")
+    check(viol[-1] <= 0.4 * viol[0], "7g: violations at epoch 15 <= 40% of epoch 1's")
+    check(norm <= 1.0 + 1e-5, "7g: max row norm of E <= 1 + 1e-5")
+    return runs
+
+
+def loss_step_against_cpu(tag, trainer, xs_np) -> None:
+    """Phases 5e-5g: one step of a phase-7 path on the card and on the CPU,
+    from its initial params with the trained run's optimizer state, on the
+    same batch and pool ids; params and every optimizer slot within
+    STEP_TOL (slots relative to their size)."""
+    dev = trainer.device
+    cfg = trainer.config
+    gen = torch.Generator().manual_seed(7)
+    b = -(-len(xs_np) // min(cfg.nbatches, len(xs_np)))
+    rows = torch.randperm(len(xs_np), generator=gen)[:b]
+    batch = torch.as_tensor(xs_np, dtype=torch.int64)[rows]
+    mask = torch.ones(b)
+    sampler = trainer.sampler
+    if sampler is not None:
+        ids = sampler.draw(gen)
+        sampler = FixedPool(ids, logits=sampler.logits)
+    step = Trainer(trainer.model, sampler, cfg, optimizer=trainer.opt,
+                   device="cpu").make_step()
+    start = init_state(trainer.model, trainer.opt,
+                       torch.Generator(device=dev).manual_seed(cfg.seed))
+    # mid-schedule: a cosine warmup gives lr 0 at step 0
+    start = start._replace(opt_state=trainer.state.opt_state,
+                           step=trainer.state.step // 2)
+    t0 = time.perf_counter()
+    dev_state, dev_m = step(_state_on(start, dev), batch.to(dev), mask.to(dev))
+    _sync(dev)
+    t1 = time.perf_counter()
+    cpu_state, cpu_m = step(_state_on(start, torch.device("cpu")), batch, mask)
+    t2 = time.perf_counter()
+    log(f"[{tag}] {cfg.loss} {trainer.model.name}: loss card {float(dev_m.loss):.9e} "
+        f"cpu {float(cpu_m.loss):.9e}; step {t1 - t0:.3f} s card, {t2 - t1:.3f} s cpu")
+    for name in start.params:
+        want = cpu_state.params[name].to(dev)
+        diff = float((dev_state.params[name] - want).abs().max())
+        moved = float((want - start.params[name].to(dev)).abs().max())
+        slots = []
+        for slot, got in dev_state.opt_state[name].items():
+            other = cpu_state.opt_state[name][slot].to(dev)
+            size = float(other.abs().max())
+            d = float((got - other).abs().max())
+            slots.append(f"{slot} {d:.3e} (max {size:.3e})")
+            check(d <= STEP_TOL * max(1.0, size),
+                  f"{tag}: {name} slot {slot} card vs cpu within {STEP_TOL} of its size")
+        log(f"[{tag}] max|d{name}| {diff:.3e} (max update {moved:.3e}); slots "
+            + ", ".join(slots))
+        check(diff <= STEP_TOL, f"{tag}: one step card vs cpu, {name} within {STEP_TOL}")
+
+
 def main(argv) -> int:
     if argv not in ([], ["--kernel-times"]):
         print("usage: python3 chip_smoke.py [--kernel-times]", file=sys.stderr)
@@ -736,9 +1047,16 @@ def main(argv) -> int:
         step_against_cpu(cfg, ds, model, opt, start, dev, "5" + tag,
                          unique_too=cfg.model == "hole")
         evaluate(ds, model, state, dev, "6" + tag)
+    t_eval = time.perf_counter()
+    del graphs, trained
+    runs = surface(dev, launches)
+    t_surface = time.perf_counter()
+    for tag, (trainer, xs) in runs.items():
+        loss_step_against_cpu(tag, trainer, xs)
     t_end = time.perf_counter()
     log(f"[time] phases 1-2 {t_build - t0:.1f} s, 3 {t_kernels - t_build:.1f} s, "
-        f"4 {t_train - t_kernels:.1f} s (graphs included), 5-6 {t_end - t_train:.1f} s")
+        f"4 {t_train - t_kernels:.1f} s (graphs included), 5-6 {t_eval - t_train:.1f} s, "
+        f"7 {t_surface - t_eval:.1f} s (graphs included), 5e-5g {t_end - t_surface:.1f} s")
     # each kernel at the TransE or RESCAL slice's shape, its other timed
     # shapes under "shapes"
     log(json.dumps({"kernels": [{

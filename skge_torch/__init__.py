@@ -5,37 +5,50 @@ match it. The port holds the reference family (TransE, RESCAL, HolE,
 ER-MLP) trained two ways: reference-exact, with iid negatives from the
 random-mode, LCWA, corrupted or Bernoulli sampler (the fused pairwise
 step, or the generic expanded-pair pairwise and pointwise steps), and
-against a shared negative pool (pairwise margin and pointwise logistic
-loss). Row-sparse AdaGrad or SGD, and filtered-ranking evaluation. The
-gradient scatters are hand-written CUDA kernels
-(`skge_torch.ops.cuda_segment`, and `skge_torch.ops.cuda_outer` for
-RESCAL's factored shared-pool W gradient).
+against a shared negative pool (pairwise margin, pointwise logistic,
+self-adversarial and sampled cross-entropy losses); and full 1-vs-all
+cross entropy. Row-sparse AdaGrad, SGD or lazy Adam with lr schedules,
+filtered-ranking evaluation, the `Trainer`, npz checkpoints that the JAX
+package also reads, and the `experiment` CLI
+(`python -m skge_torch.experiment`). The gradient scatters are
+hand-written CUDA kernels (`skge_torch.ops.cuda_segment`, and
+`skge_torch.ops.cuda_outer` for RESCAL's factored shared-pool W gradient).
 
-    from skge_torch import HolE, AdaGrad, RandomModeSampler, \
-        init_state, make_pairwise_step, make_epoch_fn
+    from skge_torch import HolE, RandomModeSampler, Trainer, TrainConfig
+    Trainer(HolE(n_e, n_r, 150), RandomModeSampler(n_e), TrainConfig()).fit(train)
 """
 
-from skge_torch.evaluation import FilteredRankingEval
+from skge_torch.evaluation import (FilteredRankingEval, ReciprocalEvalWrapper,
+                                   evaluate, relation_categories)
 from skge_torch.models import ERMLP, MODELS, RESCAL, HolE, KGEModel, TransE
-from skge_torch.optim import OPTIMIZERS, SGD, AdaGrad
+from skge_torch.optim import (OPTIMIZERS, SCHEDULES, SGD, AdaGrad, Adam,
+                              WarmupCosine, WarmupLinear, make_schedule)
 from skge_torch.sampling import (SAMPLERS, BernoulliSampler, CorruptedSampler,
                                  LCWASampler, RandomModeSampler,
                                  SharedNegativeSampler)
+from skge_torch.trainer import TrainConfig, Trainer
 from skge_torch.training import (
     StepMetrics,
     TrainState,
     init_state,
+    make_ce_step,
     make_epoch_fn,
     make_pairwise_step,
     make_pairwise_update,
     make_pointwise_step,
     make_pointwise_update,
+    make_sampled_ce_step,
+    make_selfadv_step,
 )
+from skge_torch.utils import (AsyncCheckpointer, MetricsLogger, load_checkpoint,
+                              save_checkpoint)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "AdaGrad",
+    "Adam",
+    "AsyncCheckpointer",
     "BernoulliSampler",
     "CorruptedSampler",
     "ERMLP",
@@ -44,19 +57,34 @@ __all__ = [
     "KGEModel",
     "LCWASampler",
     "MODELS",
+    "MetricsLogger",
     "OPTIMIZERS",
     "RESCAL",
     "RandomModeSampler",
+    "ReciprocalEvalWrapper",
     "SAMPLERS",
+    "SCHEDULES",
     "SGD",
     "SharedNegativeSampler",
     "StepMetrics",
+    "TrainConfig",
     "TrainState",
+    "Trainer",
     "TransE",
+    "WarmupCosine",
+    "WarmupLinear",
+    "evaluate",
     "init_state",
+    "load_checkpoint",
+    "make_ce_step",
     "make_epoch_fn",
     "make_pairwise_step",
     "make_pairwise_update",
     "make_pointwise_step",
     "make_pointwise_update",
+    "make_sampled_ce_step",
+    "make_schedule",
+    "make_selfadv_step",
+    "relation_categories",
+    "save_checkpoint",
 ]

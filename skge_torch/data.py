@@ -1,11 +1,14 @@
 """Datasets and host-side index building for the PyTorch port.
 
-NumPy copies of the few `skge_tpu.data` helpers the port needs: the
+NumPy copies of the `skge_tpu.data` helpers the port needs: the
+reference-format pickle (`load_dataset`, `save_dataset`), raw triple files
+(`load_tsv`, through the native loader of `native/` or in Python), the
 synthetic generator, the key encoding, the samplers' index helpers
-(`sorted_train_keys`, `type_index_arrays`, `bernoulli_probs`) and the
-filter index. They are copied rather than imported because importing
-`skge_tpu.data` imports the JAX package. They give the same arrays as
-`skge_tpu.data` for the same arguments and seed.
+(`sorted_train_keys`, `type_index_arrays`, `bernoulli_probs`,
+`unigram_logits`), reciprocal relations and the filter index. They are
+copied rather than imported because importing `skge_tpu.data` imports the
+JAX package. They give the same arrays as `skge_tpu.data` for the same
+arguments and seed.
 
 All triples are (N, 3) int32 arrays in (s, o, p) column order; the training
 code moves them to the device as int64.
@@ -13,8 +16,9 @@ code moves them to the device as int64.
 
 from __future__ import annotations
 
+import pickle
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -26,9 +30,95 @@ class Dataset:
     test: np.ndarray
     n_entities: int
     n_relations: int
+    entities: Optional[List[str]] = None
+    relations: Optional[List[str]] = None
 
     def all_triples(self) -> np.ndarray:
         return np.concatenate([self.train, self.valid, self.test])
+
+
+def _to_array(subs: Sequence[Tuple[int, int, int]]) -> np.ndarray:
+    a = np.asarray(list(subs), dtype=np.int32)
+    if a.size == 0:
+        return np.zeros((0, 3), np.int32)
+    return a.reshape(-1, 3)
+
+
+def load_dataset(path: str) -> Dataset:
+    """Load a reference-format pickle: `train_subs`/`valid_subs`/`test_subs`
+    lists of (s, o, p) tuples and `entities`/`relations` name lists."""
+    with open(path, "rb") as f:
+        data = pickle.load(f)
+    entities = list(data["entities"])
+    relations = list(data["relations"])
+    return Dataset(
+        train=_to_array(data["train_subs"]),
+        valid=_to_array(data.get("valid_subs", [])),
+        test=_to_array(data.get("test_subs", [])),
+        n_entities=len(entities),
+        n_relations=len(relations),
+        entities=entities,
+        relations=relations,
+    )
+
+
+def save_dataset(ds: Dataset, path: str) -> None:
+    """Write the reference pickle format."""
+    data = {
+        "train_subs": [tuple(map(int, t)) for t in ds.train],
+        "valid_subs": [tuple(map(int, t)) for t in ds.valid],
+        "test_subs": [tuple(map(int, t)) for t in ds.test],
+        "entities": ds.entities or [f"e{i}" for i in range(ds.n_entities)],
+        "relations": ds.relations or [f"r{i}" for i in range(ds.n_relations)],
+    }
+    with open(path, "wb") as f:
+        pickle.dump(data, f)
+
+
+def load_tsv(
+    train_path: str,
+    valid_path: str,
+    test_path: str,
+    order: str = "spo",
+    use_native: bool = True,
+) -> Dataset:
+    """Load whitespace-separated triple files (the FB15k/WN18 raw format).
+
+    `order` gives the file column order; storage is always (s, o, p). The
+    three files share one vocabulary, ids in order of first appearance.
+    Uses the native C++ loader (`skge_torch.native`) when it builds, else
+    reads in Python; both give the same arrays and names.
+    """
+    if use_native:
+        from skge_torch import native
+
+        out = native.load_triple_files([train_path, valid_path, test_path], order)
+        if out is not None:
+            (train, valid, test), entities, relations = out
+            return Dataset(train=train, valid=valid, test=test,
+                           n_entities=len(entities), n_relations=len(relations),
+                           entities=entities, relations=relations)
+    ent: Dict[str, int] = {}
+    rel: Dict[str, int] = {}
+    cols = {c: i for i, c in enumerate(order)}
+
+    def read(path):
+        rows = []
+        with open(path) as f:
+            for line in f:
+                parts = line.strip().split()
+                if len(parts) != 3:
+                    continue
+                s = ent.setdefault(parts[cols["s"]], len(ent))
+                p = rel.setdefault(parts[cols["p"]], len(rel))
+                o = ent.setdefault(parts[cols["o"]], len(ent))
+                rows.append((s, o, p))
+        return _to_array(rows)
+
+    train, valid, test = read(train_path), read(valid_path), read(test_path)
+    return Dataset(train=train, valid=valid, test=test,
+                   n_entities=len(ent), n_relations=len(rel),
+                   entities=list(ent), relations=list(rel))
 
 
 def synthetic_kg(
@@ -156,4 +246,40 @@ def true_triple_index(triples: np.ndarray):
     return (
         {k: np.unique(v).astype(np.int32) for k, v in sp_o.items()},
         {k: np.unique(v).astype(np.int32) for k, v in op_s.items()},
+    )
+
+
+def unigram_logits(
+    triples: np.ndarray, n_entities: int,
+    alpha: float = 0.75, smoothing: float = 1.0,
+) -> np.ndarray:
+    """Log-probabilities for degree-weighted negative sampling (word2vec /
+    DGL-KE unigram^alpha): entity e is drawn with probability proportional
+    to (deg(e) + smoothing)^alpha, deg counting subject and object slots of
+    `triples`. Feed to `SharedNegativeSampler(logits=...)`."""
+    deg = np.bincount(
+        np.concatenate([triples[:, 0], triples[:, 1]]), minlength=n_entities
+    ).astype(np.float64)
+    return (alpha * np.log(deg + smoothing)).astype(np.float32)
+
+
+def add_reciprocal_relations(ds: Dataset) -> Dataset:
+    """Reciprocal-relation augmentation: n_relations doubled, relation p's
+    inverse is p + n_relations, and train also holds (o, s, p_inv) for each
+    train triple (s, o, p). Valid and test are unchanged, so filtered
+    ranking stays comparable; train with object-direction CE and evaluate
+    through `evaluation.ReciprocalEvalWrapper`."""
+    t = ds.train
+    inv = np.stack([t[:, 1], t[:, 0], t[:, 2] + ds.n_relations], axis=1)
+    relations = None
+    if ds.relations is not None:
+        relations = list(ds.relations) + [f"{r}_inv" for r in ds.relations]
+    return Dataset(
+        train=np.concatenate([t, inv.astype(t.dtype)]),
+        valid=ds.valid,
+        test=ds.test,
+        n_entities=ds.n_entities,
+        n_relations=2 * ds.n_relations,
+        entities=ds.entities,
+        relations=relations,
     )

@@ -9,7 +9,10 @@ ranks the target at 1 + #greater + #equal/2; `ties='optimistic'` at
 
 The all-entity sweep is the model's `score_all_o/s`. The host builds, once
 per eval set, a flat (row, entity) list of known-true pairs per test batch,
-and the device writes -inf at those pairs.
+and the device writes -inf at those pairs. `RankingResult` splits the
+metrics by direction, relation and relation category
+(`relation_categories`); `ReciprocalEvalWrapper` ranks a model trained on
+reciprocal relations through its inverse relations.
 """
 
 from __future__ import annotations
@@ -52,6 +55,46 @@ class RankingResult:
         for k, v in self.hits_raw.items():
             out[f"hits@{k}_raw"] = v
         return out
+
+    def _metrics(self, ranks: np.ndarray, hits_at) -> Dict[str, float]:
+        mrr, mr, hits = ranking_scores(ranks, hits_at)
+        out = {"mrr": mrr, "mean_rank": mr, "n": int(ranks.size)}
+        out.update({f"hits@{k}": v for k, v in hits.items()})
+        return out
+
+    def by_direction(self, hits_at=(1, 3, 10)) -> Dict[str, Dict[str, float]]:
+        """Filtered metrics of 'object' (tail, ranks[0]) and 'subject'
+        (head, ranks[1]) prediction."""
+        return {
+            "object": self._metrics(self.ranks[0], hits_at),
+            "subject": self._metrics(self.ranks[1], hits_at),
+        }
+
+    def _test(self) -> np.ndarray:
+        if self.test is None:
+            raise ValueError("the breakdown needs the test triples "
+                             "(RankingResult.test is None)")
+        return self.test
+
+    def by_relation(self, hits_at=(1, 3, 10)) -> Dict[int, Dict[str, float]]:
+        """Filtered metrics per relation id, both directions pooled."""
+        rel = self._test()[:, 2]
+        return {int(p): self._metrics(self.ranks[:, rel == p], hits_at)
+                for p in np.unique(rel)}
+
+    def by_category(
+        self, categories: Dict[int, str], hits_at=(1, 3, 10)
+    ) -> Dict[str, Dict[str, Dict[str, float]]]:
+        """Filtered metrics per relation category (`relation_categories`)
+        and direction: {category: {'object': ..., 'subject': ...}}.
+        Relations missing from `categories` go to 'uncategorized'."""
+        cats = np.array([categories.get(int(p), "uncategorized")
+                         for p in self._test()[:, 2]])
+        return {
+            c: {"object": self._metrics(self.ranks[0, cats == c], hits_at),
+                "subject": self._metrics(self.ranks[1, cats == c], hits_at)}
+            for c in sorted(set(cats.tolist()))
+        }
 
 
 def ranking_scores(
@@ -186,3 +229,54 @@ class FilteredRankingEval:
             ranks_raw=all_raw,
             test=self.test,
         )
+
+
+def evaluate(
+    model: KGEModel,
+    params: Params,
+    test: np.ndarray,
+    known: Optional[np.ndarray] = None,
+    batch_size: int = 1024,
+    hits_at: Sequence[int] = (1, 3, 10),
+) -> RankingResult:
+    """One-shot `FilteredRankingEval`; `known` defaults to `test`."""
+    if known is None:
+        known = test
+    return FilteredRankingEval(model, test, known, batch_size, hits_at)(params)
+
+
+@dataclass(frozen=True)
+class ReciprocalEvalWrapper:
+    """Rank a model trained on `data.add_reciprocal_relations` with
+    object-direction CE: head queries (o, p) are asked as tail queries of
+    the inverse relation. The wrapped model's `n_relations` is the doubled
+    count."""
+
+    model: KGEModel
+
+    def __post_init__(self):
+        if self.model.n_relations % 2 != 0:
+            raise ValueError("reciprocal eval expects the DOUBLED relation count "
+                             "(data.add_reciprocal_relations)")
+
+    def score_all_o(self, params: Params, s, p):
+        return self.model.score_all_o(params, s, p)
+
+    def score_all_s(self, params: Params, o, p):
+        half = self.model.n_relations // 2
+        return self.model.score_all_o(params, o, torch.where(p < half, p + half, p - half))
+
+
+def relation_categories(triples: np.ndarray, threshold: float = 1.5) -> Dict[int, str]:
+    """TransE-paper relation typing (Bordes et al. 2013): a side is 'N'
+    when its mean multiplicity exceeds `threshold` (hpt = heads per tail,
+    tph = tails per head). Returns {relation: '1-1' | '1-N' | 'N-1' |
+    'N-N'}; compute over train triples."""
+    t = np.asarray(triples)
+    out: Dict[int, str] = {}
+    for p in np.unique(t[:, 2]):
+        tp = t[t[:, 2] == p]
+        tph = len(tp) / max(1, len(np.unique(tp[:, 0])))
+        hpt = len(tp) / max(1, len(np.unique(tp[:, 1])))
+        out[int(p)] = f"{'N' if hpt > threshold else '1'}-{'N' if tph > threshold else '1'}"
+    return out

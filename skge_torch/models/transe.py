@@ -10,10 +10,11 @@ difference (a pool row equal to the query) then trains as in the JAX
 package.
 
 The L1 pool and all-entity sweeps are plain PyTorch, chunked over the pool
-or the entities to bound the (B, chunk, d) broadcast. In training each pool
-chunk is recomputed in the backward pass (`torch.utils.checkpoint`), so the
-full (B, K, d) tensor never exists. L2 rides a matmul through the norm
-expansion ||q - e||^2 = |q|^2 - 2 q.e + |e|^2.
+or the entities to bound the (B, chunk, d) broadcast. Under autograd (pool
+training, full cross entropy) each chunk is recomputed in the backward pass
+(`torch.utils.checkpoint`), so no (B, chunk, d) tensor outlives its chunk.
+L2 rides a matmul through the norm expansion ||q - e||^2 = |q|^2 - 2 q.e +
+|e|^2.
 """
 
 from __future__ import annotations
@@ -36,6 +37,17 @@ def _abs(x: torch.Tensor) -> torch.Tensor:
 
 def _neg_l1_pool_chunk(q: torch.Tensor, pblk: torch.Tensor) -> torch.Tensor:
     return -torch.sum(_abs(q[:, None, :] - pblk[None, :, :]), dim=-1)
+
+
+def _neg_l1_chunks(q: torch.Tensor, rows: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(B, n) = -||q[b] - rows[e]||_1, `chunk` rows at a time, each chunk
+    recomputed in the backward pass when autograd records."""
+    def one(c):
+        if torch.is_grad_enabled() and (q.requires_grad or c.requires_grad):
+            return checkpoint(_neg_l1_pool_chunk, q, c, use_reentrant=False)
+        return _neg_l1_pool_chunk(q, c)
+
+    return torch.cat([one(c) for c in torch.split(rows, chunk)], dim=1)
 
 
 @dataclass(frozen=True)
@@ -69,13 +81,8 @@ class TransE(KGEModel):
             en = torch.sum(E * E, dim=-1)[None, :]
             cross = 2.0 * sign * self.mxu(q, E.T)
             return -(qn + cross + en)
-        return torch.cat(
-            [
-                -torch.sum(_abs(q[:, None, :] + sign * Eblk[None, :, :]), dim=-1)
-                for Eblk in torch.split(E, ALL_CHUNK)
-            ],
-            dim=1,
-        )
+        # q + E[e] = q - (-E[e]) (object side); q - E[e] (subject side)
+        return _neg_l1_chunks(q, -sign * E, ALL_CHUNK)
 
     def score_pool(self, rows, pool_rows, dense, mode):
         """(B, K) distances to the shared negative pool.
@@ -88,13 +95,7 @@ class TransE(KGEModel):
             qn = torch.sum(q * q, dim=-1, keepdim=True)
             pn = torch.sum(pool_rows * pool_rows, dim=-1)[None, :]
             return -(qn - 2.0 * self.mxu(q, pool_rows.T) + pn)
-        return torch.cat(
-            [
-                checkpoint(_neg_l1_pool_chunk, q, c, use_reentrant=False)
-                for c in torch.split(pool_rows, POOL_CHUNK)
-            ],
-            dim=1,
-        )
+        return _neg_l1_chunks(q, pool_rows, POOL_CHUNK)
 
     def score_all_o(self, params: Params, s, p):
         q = params["E"][s] + params["R"][p]

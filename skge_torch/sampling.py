@@ -13,8 +13,9 @@ object, in the (s, o, p) column convention); labels are -1.
   when the relation has none.
 - `BernoulliSampler`: one negative per positive, the subject corrupted
   with the relation's probability tph/(tph+hpt).
-- `SharedNegativeSampler`: K entities drawn ONCE per step; every positive
-  is ranked against every pool entity, for each mode in `modes`. As in the
+- `SharedNegativeSampler`: K entities drawn ONCE per step, uniform or,
+  with `logits`, from softmax(logits) with replacement; every positive is
+  ranked against every pool entity, for each mode in `modes`. As in the
   reference's uniform sampler, no false-negative filtering is applied.
 
 The iid samplers split each draw into two parts: `draw(generator, b)`
@@ -25,13 +26,14 @@ tests hand the pure part the JAX package's raw draws. The train steps read
 the `corruptions(generator, pos, mask)` protocol, a list of
 (mode, replacement (B,), valid (B,)), or the expanded `__call__` form,
 (positives repeated, negatives, pair mask); the shared pool has the
-`pool` protocol instead.
+`pool` protocol instead, whose `draw(generator)` is the pool itself
+(tests inject pool ids through a `pool`-protocol stand-in).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -205,15 +207,39 @@ class CorruptedSampler(_IidSampler):
 
 @dataclass(frozen=True, eq=False)
 class SharedNegativeSampler:
+    """`logits`: optional (n_entities,) unnormalized log-probabilities
+    (`data.unigram_logits`); the pool is then drawn from softmax(logits)
+    with replacement. JAX's Gumbel-argmax draw and `torch.multinomial` draw
+    from the same distribution, never the same ids."""
+
     n_entities: int
     k: int = 1024
     modes: Tuple[int, ...] = (0, 1)
+    logits: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.logits is not None:
+            logits = torch.as_tensor(self.logits, dtype=torch.float32)
+            if logits.shape != (self.n_entities,):
+                raise ValueError(f"logits of shape {tuple(logits.shape)} for "
+                                 f"{self.n_entities} entities")
+            object.__setattr__(self, "logits", logits)
+            object.__setattr__(self, "_probs", {})  # device -> softmax(logits)
+
+    def draw(self, generator: torch.Generator) -> torch.Tensor:
+        """(k,) int64 entity ids on the generator's device."""
+        if self.logits is None:
+            return _randint(generator, self.n_entities, (self.k,))
+        dev = generator.device
+        probs = self._probs.get(dev)
+        if probs is None:
+            probs = self._probs[dev] = torch.softmax(self.logits.to(dev), dim=0)
+        return torch.multinomial(probs, self.k, replacement=True, generator=generator)
 
     def pool(
         self, generator: torch.Generator, pos: torch.Tensor, mask: torch.Tensor
     ) -> torch.Tensor:
-        """(k,) int64 entity ids, uniform over [0, n_entities)."""
-        return _randint(generator, self.n_entities, (self.k,))
+        return self.draw(generator)
 
 
 SAMPLERS = {

@@ -1,5 +1,5 @@
-"""Training core of the port: margin and logistic gradients, sparse
-updates, train steps and the epoch loop.
+"""Training core of the port: margin, logistic, self-adversarial and
+cross-entropy gradients, sparse updates, train steps and the epoch loop.
 
     gather rows -> score -> gradient w.r.t. the gathered rows
     -> duplicate-index segment averaging -> sparse optimizer update
@@ -16,7 +16,8 @@ Semantics are those of `skge_tpu.training`:
   `model.reg_row_params`;
 - dense params (ER-MLP's W and C) take the batch's mean gradient.
 
-Three families of gradient functions, chosen by the sampler's protocol:
+Three families of margin and logistic gradient functions, chosen by the
+sampler's protocol:
 
 - iid negatives, `corruptions` protocol: `pairwise_grads_fused`, the
   reference-exact pairs with each base row gathered and scored once;
@@ -28,7 +29,10 @@ Three families of gradient functions, chosen by the sampler's protocol:
   factored (`FactoredOcc`) for the outer-product scatter.
 
 Row gradients come from autograd over the gathered rows, except on the
-factored paths.
+factored paths. Beside them: the self-adversarial loss over a shared pool
+(`selfadv_grads_shared`), full 1-vs-all cross entropy with full-table
+gradients (`ce_grads_all`) and sampled cross entropy over a shared pool
+(`sampled_ce_grads_shared`, whose duplicate rows add up: `combine="sum"`).
 
 Batches are padded to a fixed size and masked, as in the JAX package, so
 every step of an epoch has the same shapes. Random draws (epoch
@@ -39,6 +43,7 @@ the JAX package's draws in (`perm=` and samplers that replay them).
 
 from __future__ import annotations
 
+import math
 from collections import Counter
 from typing import Callable, NamedTuple, Optional, Tuple
 
@@ -52,7 +57,7 @@ from skge_torch.ops.aggregate import (
     segment_mean_unique,
     segment_outer_mean_dense,
 )
-from skge_torch.optim import Optimizer, OptState
+from skge_torch.optim import POST_CONSTRAINTS, Optimizer, OptState
 
 
 class TrainState(NamedTuple):
@@ -462,32 +467,185 @@ def pointwise_grads_shared(
         model, params, pos, pool_idx
     )
     mask = mask.to(acc_dtype(pool_rows))
-    k = pool_idx.shape[0]
 
     with torch.enable_grad():
         f_pos = model.score_from_rows(rows, dense)             # (B,)
         loss = torch.sum(_softplus(-f_pos) * mask)             # y = +1
         for f_neg in model.score_pool_modes(rows, pool_rows, dense, tuple(modes)):
             loss = loss + torch.sum(_softplus(f_neg) * mask[:, None])  # y = -1
-        leaves = [*rows.values(), pool_rows, *dense.values()]
-        grads = torch.autograd.grad(loss, leaves)
-    g_rows = dict(zip(rows, grads))
-    g_pool = grads[len(rows)]
-    g_dense = dict(zip(dense, grads[len(rows) + 1:]))
+        grads = torch.autograd.grad(loss, [*rows.values(), pool_rows, *dense.values()])
+    occ, g_dense = _pool_element_occurrences(
+        model, role_idx, epname, rows, dense, grads, pool_idx, mask, modes)
+    return loss.detach(), occ, g_dense
 
+
+def _pool_element_occurrences(model: KGEModel, role_idx, epname, rows, dense,
+                              grads, pool_idx, mask, modes):
+    """(occ, g_dense) of a loss over every (positive, pool entity, mode)
+    element of a shared pool, `grads` being autograd's over (rows, pool
+    rows, dense). ELEMENT counts: each expanded element is one occurrence,
+    whatever its weight in the loss."""
+    k = pool_idx.shape[0]
     counts = {
         role: (1.0 + k * sum(1 for m in modes if m != mode_of_role)) * mask
         for role, mode_of_role in (("s", 0), ("o", 1))
     }
     counts["p"] = (1.0 + k * len(modes)) * mask
     occ = _group_slots(
-        model, role_idx, epname, g_rows, counts, pool_idx, g_pool,
+        model, role_idx, epname, dict(zip(rows, grads)), counts, pool_idx,
+        grads[len(rows)],
         torch.full((k,), float(len(modes)), dtype=mask.dtype,
                    device=mask.device) * torch.sum(mask),
     )
     n_elems = torch.clamp(torch.sum(mask) * (1.0 + k * len(modes)), min=1.0)
-    g_dense = {kk: v / n_elems for kk, v in g_dense.items()}
+    g_dense = {kk: v / n_elems for kk, v in zip(dense, grads[len(rows) + 1:])}
+    return occ, g_dense
+
+
+def selfadv_grads_shared(
+    model: KGEModel,
+    params: Params,
+    pos: torch.Tensor,        # (B, 3) int64 positives
+    pool_idx: torch.Tensor,   # (K,) int64 shared negative entity ids
+    mask: torch.Tensor,       # (B,) batch validity
+    margin: float,
+    alpha: float = 1.0,
+    modes: Tuple[int, ...] = (0, 1),
+):
+    """Shared-pool self-adversarial gradients (Sun et al. 2019, RotatE).
+    Per valid positive b, with pool scores f[b, k] per corruption mode:
+
+        L_b = softplus(-(f_b + margin))
+              + sum_mode sum_k w[b,k] * softplus(f[b,k] + margin)
+        w[b,k] = softmax_k(alpha * f[b,k])        (detached)
+
+    alpha = 0 is the unweighted mean pool logistic loss. Occurrence counts
+    are element counts, as in `pointwise_grads_shared`. Returns (loss, occ,
+    g_dense).
+    """
+    role_idx, epname, rows, pool_rows, dense = _leaves(
+        model, params, pos, pool_idx
+    )
+    mask = mask.to(acc_dtype(pool_rows))
+
+    with torch.enable_grad():
+        f_pos = model.score_from_rows(rows, dense)             # (B,)
+        loss = torch.sum(_softplus(-(f_pos + margin)) * mask)
+        for f_neg in model.score_pool_modes(rows, pool_rows, dense, tuple(modes)):
+            w = torch.softmax(alpha * f_neg, dim=1).detach()  # (B, K)
+            loss = loss + torch.sum(w * _softplus(f_neg + margin) * mask[:, None])
+        grads = torch.autograd.grad(loss, [*rows.values(), pool_rows, *dense.values()])
+    occ, g_dense = _pool_element_occurrences(
+        model, role_idx, epname, rows, dense, grads, pool_idx, mask, modes)
     return loss.detach(), occ, g_dense
+
+
+def ce_grads_all(
+    model: KGEModel,
+    params: Params,
+    pos: torch.Tensor,        # (B, 3) int64 positives
+    mask: torch.Tensor,       # (B,) batch validity
+    directions: Tuple[str, ...] = ("o", "s"),
+    label_smoothing: float = 0.0,
+):
+    """Full cross-entropy (1-vs-all) loss and FULL-TABLE gradients.
+
+    Each positive is scored against every entity in the corrupted role
+    (`score_all_o` / `score_all_s`), with the true entity as the label:
+
+        L = mean_valid [ logZ(s,p) - f(s,p,o) ]        (direction 'o')
+          + mean_valid [ logZ(o,p) - f(s,p,o) ]        (direction 's')
+
+    With `label_smoothing` = ls the target is (1-ls)*onehot + ls/n_e. The
+    partition function touches every entity row, so there is no occurrence
+    scatter: returns (loss, {pname: full-table gradient}).
+    """
+    s, o, p = pos[:, 0], pos[:, 1], pos[:, 2]
+    n_valid = torch.clamp(torch.sum(mask), min=1.0)
+    barange = torch.arange(pos.shape[0], device=pos.device)
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    with torch.enable_grad():
+        total = 0.0
+        for d in directions:
+            if d == "o":
+                logits, labels = model.score_all_o(leaves, s, p), o
+            elif d == "s":
+                logits, labels = model.score_all_s(leaves, o, p), s
+            else:
+                raise ValueError(f"direction {d!r} (want 'o'/'s')")
+            logp = torch.log_softmax(logits, dim=1)
+            nll = -logp[barange, labels]
+            if label_smoothing:
+                nll = ((1.0 - label_smoothing) * nll
+                       - label_smoothing * torch.mean(logp, dim=1))
+            total = total + torch.sum(nll * mask)
+        loss = total / n_valid
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    materialize_grads=True)
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def sampled_ce_grads_shared(
+    model: KGEModel,
+    params: Params,
+    pos: torch.Tensor,        # (B, 3) int64 positives
+    pool_idx: torch.Tensor,   # (K,) int64 shared candidate entity ids
+    mask: torch.Tensor,       # (B,) batch validity
+    directions: Tuple[str, ...] = ("o", "s"),
+    label_smoothing: float = 0.0,
+    log_q: Optional[torch.Tensor] = None,  # (K,) proposal log-probs
+):
+    """Sampled softmax cross entropy over a shared candidate pool.
+
+    The partition function is estimated with the importance-corrected
+    EXCLUSION form (q = the pool's proposal, uniform 1/n_e without `log_q`):
+
+        Zhat_b = exp(f_pos_b)
+               + sum_k [pool_k != label_b] * exp(f[b,k] - log(K*q_k))
+        nll_b  = log Zhat_b - f_pos_b
+
+    A pool entity equal to the label gets a -inf logit, whose gradient is
+    0. With K = n_e and the pool `arange(n_e)` the correction vanishes and
+    this is `ce_grads_all`. Label smoothing uses the same estimator of the
+    mean logit. The gradients are plain sums of the mean-over-valid loss:
+    apply them with `premasked=True, combine="sum"`. Returns (loss, occ,
+    g_dense); the counts only gate validity.
+    """
+    role_idx, epname, rows, pool_rows, dense = _leaves(
+        model, params, pos, pool_idx
+    )
+    k = pool_idx.shape[0]
+    n_e = model.n_entities
+    ls = float(label_smoothing)
+    n_valid = torch.clamp(torch.sum(mask), min=1.0)
+    if log_q is None:
+        log_q = -torch.log(torch.full((k,), float(n_e), dtype=mask.dtype,
+                                      device=mask.device))
+    corr = -(math.log(float(k)) + log_q)          # (K,) importance correction
+    mode_of = {"o": 1, "s": 0}
+    with torch.enable_grad():
+        f_pos = model.score_from_rows(rows, dense)             # (B,)
+        total = 0.0
+        f_pools = model.score_pool_modes(
+            rows, pool_rows, dense, tuple(mode_of[d] for d in directions))
+        for d, f_pool in zip(directions, f_pools):            # (B, K) each
+            hit = pool_idx[None, :] == role_idx[d][:, None]
+            logits = torch.where(hit, -math.inf, f_pool + corr[None, :])
+            logz = torch.logsumexp(torch.cat([f_pos[:, None], logits], dim=1), dim=1)
+            nll = logz - f_pos
+            if ls:
+                # (f_label + sum_k [k != label] f_k / (K q_k)) / n_e - logZhat
+                wsum = torch.where(hit, 0.0, f_pool * torch.exp(corr)[None, :]).sum(dim=1)
+                nll = (1.0 - ls) * nll - ls * ((f_pos + wsum) / n_e - logz)
+            total = total + torch.sum(nll * mask)
+        loss = total / n_valid
+        grads = torch.autograd.grad(loss, [*rows.values(), pool_rows, *dense.values()])
+    counts = dict.fromkeys(("s", "o", "p"), mask)
+    occ = _group_slots(
+        model, role_idx, epname, dict(zip(rows, grads)), counts, pool_idx,
+        grads[len(rows)], torch.ones(k, dtype=mask.dtype, device=mask.device),
+    )
+    return loss.detach(), occ, dict(zip(dense, grads[len(rows) + 1:]))
 
 
 def pointwise_grads_shared_bilinear(
@@ -563,6 +721,8 @@ def apply_gradients(
     g_dense: Params,
     aggregate: str = "unique",  # 'unique' | 'dense' | 'dense_pallas' | 'dense_sorted'
     premasked: bool = False,    # occ grads pre-weighted, mask = counts
+    step: Optional[int] = None,  # the global step, for lr schedules
+    combine: str = "mean",      # 'mean' (duplicate averaging) | 'sum'
 ) -> Tuple[Params, OptState]:
     """Aggregate the occurrence gradients and update the touched rows.
 
@@ -573,22 +733,34 @@ def apply_gradients(
     so a TransE step launches `segment_sum` once. Under 'unique' a
     `FactoredOcc`'s outer products are materialized batch-locally, as in
     the JAX package. `rparam` adds `rparam * row` to the averaged gradient
-    of each touched row of `model.reg_row_params`.
+    of each touched row of `model.reg_row_params`. `combine="sum"`
+    multiplies each averaged row back by its count, so duplicate
+    occurrences add up (sampled cross entropy); on the dense modes that is
+    the kernel's atomic fp32 sum divided and multiplied again, not a plain
+    sum bit for bit.
     """
     if aggregate != "unique" and aggregate not in _DENSE_MODES:
         raise ValueError(f"unknown aggregate mode {aggregate!r}")
+    if combine not in ("mean", "sum"):
+        raise ValueError(f"unknown combine {combine!r}")
     params = dict(params)
     opt_state = dict(opt_state)
     reg = model.regularization
 
+    def summed(grads, count):
+        if combine == "mean":
+            return grads
+        return grads * count.reshape((-1,) + (1,) * (grads.dim() - 1))
+
     def apply_dense_grads(pname, dg: DenseGrads):
+        dg = dg._replace(grads=summed(dg.grads, dg.count))
         if reg != 0.0 and pname in model.reg_row_params:
             dg = dg._replace(
                 grads=dg.grads + reg * model.reg_grad_rows(pname, params[pname])
             )
         params[pname], opt_state[pname] = opt.apply_dense_masked(
             params[pname], opt_state[pname], dg,
-            model.post_constraints.get(pname),
+            model.post_constraints.get(pname), step=step,
         )
 
     factored = {p: f for p, f in occ.items() if isinstance(f, FactoredOcc)}
@@ -605,6 +777,7 @@ def apply_gradients(
     if aggregate == "unique":
         for pname, (idx, g, m) in occ.items():
             ug = segment_mean_unique(idx, g, m, model.num_rows(pname), premasked)
+            ug = ug._replace(grads=summed(ug.grads, ug.count))
             if reg != 0.0 and pname in model.reg_row_params:
                 ug = ug._replace(
                     grads=ug.grads
@@ -612,7 +785,7 @@ def apply_gradients(
                 )
             params[pname], opt_state[pname] = opt.apply_unique(
                 params[pname], opt_state[pname], ug,
-                model.post_constraints.get(pname),
+                model.post_constraints.get(pname), step=step,
             )
     else:
         groups: dict = {}
@@ -636,7 +809,7 @@ def apply_gradients(
                 )
     for pname, g in g_dense.items():
         params[pname], opt_state[pname] = opt.apply_full(
-            params[pname], opt_state[pname], g
+            params[pname], opt_state[pname], g, step=step
         )
     return params, opt_state
 
@@ -668,7 +841,8 @@ def make_pairwise_update(
             model, state.params, pos_rep, neg, pair_mask, margin
         )
         params, opt_state = apply_gradients(
-            model, opt, state.params, state.opt_state, occ, g_dense, aggregate
+            model, opt, state.params, state.opt_state, occ, g_dense, aggregate,
+            step=state.step,
         )
         new_state = TrainState(params, opt_state, state.generator, state.step + 1)
         return new_state, StepMetrics(loss=loss, nviolations=nviol)
@@ -683,7 +857,8 @@ def make_pointwise_update(model: KGEModel, opt: Optimizer, aggregate: str = "uni
     def update(state: TrainState, triples, ys, mask):
         loss, occ, g_dense = pointwise_grads(model, state.params, triples, ys, mask)
         params, opt_state = apply_gradients(
-            model, opt, state.params, state.opt_state, occ, g_dense, aggregate
+            model, opt, state.params, state.opt_state, occ, g_dense, aggregate,
+            step=state.step,
         )
         new_state = TrainState(params, opt_state, state.generator, state.step + 1)
         return new_state, StepMetrics(loss=loss, nviolations=torch.zeros_like(loss))
@@ -732,7 +907,7 @@ def make_pairwise_step(
         loss, nviol, occ, g_dense = grads_fn(state, batch, mask)
         params, opt_state = apply_gradients(
             model, opt, state.params, state.opt_state, occ, g_dense,
-            aggregate, premasked=True,
+            aggregate, premasked=True, step=state.step,
         )
         new_state = TrainState(params, opt_state, state.generator, state.step + 1)
         return new_state, StepMetrics(loss=loss, nviolations=nviol)
@@ -771,7 +946,110 @@ def make_pointwise_step(
         )
         params, opt_state = apply_gradients(
             model, opt, state.params, state.opt_state, occ, g_dense,
-            aggregate, premasked=True,
+            aggregate, premasked=True, step=state.step,
+        )
+        new_state = TrainState(params, opt_state, state.generator, state.step + 1)
+        return new_state, StepMetrics(loss=loss, nviolations=torch.zeros_like(loss))
+
+    return step
+
+
+def _need_pool(sampler, what: str) -> None:
+    if not hasattr(sampler, "pool"):
+        raise ValueError(f"{what} needs a shared-pool sampler "
+                         "(SharedNegativeSampler); iid samplers have no pool")
+
+
+def make_selfadv_step(
+    model: KGEModel,
+    opt: Optimizer,
+    sampler,
+    margin: float,
+    alpha: float = 1.0,
+    aggregate: str = "unique",
+):
+    """One self-adversarial step over a shared pool (`selfadv_grads_shared`).
+    `nviolations` is 0 (smooth loss)."""
+    _need_pool(sampler, "make_selfadv_step")
+
+    def step(state: TrainState, batch: torch.Tensor, mask: torch.Tensor):
+        pool_idx = sampler.pool(state.generator, batch, mask)
+        loss, occ, g_dense = selfadv_grads_shared(
+            model, state.params, batch, pool_idx, mask, margin, alpha,
+            modes=sampler.modes,
+        )
+        params, opt_state = apply_gradients(
+            model, opt, state.params, state.opt_state, occ, g_dense,
+            aggregate, premasked=True, step=state.step,
+        )
+        new_state = TrainState(params, opt_state, state.generator, state.step + 1)
+        return new_state, StepMetrics(loss=loss, nviolations=torch.zeros_like(loss))
+
+    return step
+
+
+def make_ce_step(
+    model: KGEModel,
+    opt: Optimizer,
+    directions: Tuple[str, ...] = ("o", "s"),
+    label_smoothing: float = 0.0,
+):
+    """One full cross-entropy step (`ce_grads_all`), no sampler. Every table
+    takes `apply_full`: every entity row is in the partition function, and a
+    zero gradient row is an exact no-op of AdaGrad and SGD. `rparam` and the
+    post-constraint (TransE's normless1) apply to the whole table.
+    `nviolations` is 0."""
+
+    def step(state: TrainState, batch: torch.Tensor, mask: torch.Tensor):
+        loss, grads = ce_grads_all(model, state.params, batch, mask, directions,
+                                   label_smoothing)
+        reg = model.regularization
+        params, opt_state = dict(state.params), dict(state.opt_state)
+        for pname, g in grads.items():
+            if reg != 0.0 and pname in model.reg_row_params:
+                g = g + reg * model.reg_grad_rows(pname, params[pname])
+            params[pname], opt_state[pname] = opt.apply_full(
+                params[pname], opt_state[pname], g, step=state.step
+            )
+            post = model.post_constraints.get(pname)
+            if post is not None:
+                params[pname] = POST_CONSTRAINTS[post](params[pname])
+        new_state = TrainState(params, opt_state, state.generator, state.step + 1)
+        return new_state, StepMetrics(loss=loss, nviolations=torch.zeros_like(loss))
+
+    return step
+
+
+def make_sampled_ce_step(
+    model: KGEModel,
+    opt: Optimizer,
+    sampler,
+    directions: Tuple[str, ...] = ("o", "s"),
+    label_smoothing: float = 0.0,
+    aggregate: str = "unique",
+):
+    """One sampled cross-entropy step (`sampled_ce_grads_shared`). A sampler
+    with `logits` (a unigram pool) feeds the proposal correction."""
+    _need_pool(sampler, "make_sampled_ce_step")
+    logits = getattr(sampler, "logits", None)
+    log_q_tables: dict = {}  # device -> (n_e,) proposal log-probs
+
+    def step(state: TrainState, batch: torch.Tensor, mask: torch.Tensor):
+        pool_idx = sampler.pool(state.generator, batch, mask)
+        log_q = None
+        if logits is not None:
+            table = log_q_tables.get(pool_idx.device)
+            if table is None:
+                table = log_q_tables[pool_idx.device] = torch.log_softmax(
+                    logits.to(pool_idx.device), dim=0)
+            log_q = table[pool_idx]
+        loss, occ, g_dense = sampled_ce_grads_shared(
+            model, state.params, batch, pool_idx, mask, directions,
+            label_smoothing, log_q,
+        )
+        params, opt_state = apply_gradients(
+            model, opt, state.params, state.opt_state, occ, g_dense,
+            aggregate, premasked=True, step=state.step, combine="sum",
         )
         new_state = TrainState(params, opt_state, state.generator, state.step + 1)
         return new_state, StepMetrics(loss=loss, nviolations=torch.zeros_like(loss))

@@ -1,0 +1,14 @@
+"""Checkpoints, metrics and profiling of the port."""
+
+from skge_torch.utils.checkpoint import (AsyncCheckpointer, load_checkpoint,
+                                         save_checkpoint)
+from skge_torch.utils.metrics import MetricsLogger, StepTimer, profile_trace
+
+__all__ = [
+    "AsyncCheckpointer",
+    "MetricsLogger",
+    "StepTimer",
+    "load_checkpoint",
+    "profile_trace",
+    "save_checkpoint",
+]

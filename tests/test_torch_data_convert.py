@@ -91,6 +91,10 @@ def _imports(path):
 def test_port_imports_no_jax():
     files = sorted((ROOT / "skge_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    scanned = {f.relative_to(ROOT).as_posix() for f in files}
+    for module in ("utils/__init__", "utils/checkpoint", "utils/metrics", "trainer",
+                   "experiment", "native"):
+        assert f"skge_torch/{module}.py" in scanned, module
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
