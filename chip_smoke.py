@@ -32,8 +32,10 @@ Phases, each fatal:
    it must move at 3.35 TB/s, or its fp32 operations at 67 TFLOP/s).
    `segment_sum` on its 16-byte path (D = 152) and its scalar path (D =
    151, a misaligned view, D = 1), within 1e-5, also at the iid TransE
-   step's 91,808 occurrences and the self-adversarial step's 22,688, and
-   timed beside `index_add_` alone; its scalar path also timed at D = 151
+   step's 91,808 occurrences, the self-adversarial step's 22,688, and the
+   shared pool's 15,520 at the factorization family's widths (D = 304 for
+   ComplEx's and SimplE's 2 x 150-wide rows, D = 604 for QuatE's 4 x 150),
+   and timed beside `index_add_` alone; its scalar path also timed at D = 151
    and at RESCAL's W counts (D = 1), beside `index_add_`;
    `segment_outer_sum` equal bit for bit to its in-order plain version and to itself in a second call, also at ranks 1, 3 and 4,
    d = 37, 12 and 1,100, and with half of the occurrences on one row at
@@ -82,7 +84,27 @@ Phases, each fatal:
       rows stay in the unit ball;
    then one step each of 7b, 7c and 7d on the card against the CPU (5e,
    5f, 5g), from the initial params with the trained run's optimizer
-   state, on the same batch and pool ids, within 1e-5.
+   state, on the same batch and pool ids, within 1e-5;
+8. the factorization family (DistMult, ComplEx, SimplE, TuckER, QuatE) at
+   the CLI's width (ncomp 150) on FB15k's shape:
+   8a each model's shared-pool margin step (k = 1,024, AdaGrad 0.1,
+      n3 1e-3), 10 warm steps, 1 K1 a step on the 16-byte path (TuckER's
+      core W takes none), busy time, `assert_finite_state`, one step
+      against the CPU from warm accumulators; ComplEx's N3 term timed
+      beside the busy time;
+   8b RECIPES.md:14 for ComplEx (full CE, reciprocal, Adam 1e-3, label
+      smoothing 0.1, n3 1e-3) through `Experiment`, 10 steps of its
+      9,663-triple batch, warm step, busy time, peak memory, one step
+      against the CPU within 1e-5, every Adam slot too;
+   8c `latent_kg(kind="bilinear")` built on the card at 40,943 entities,
+      18 relations, 141,442 triples, timed; its first 16,384 queries
+      assigned again on the card and on the CPU: each card object within
+      1e-5 of the CPU's best score, the same object wherever the CPU's
+      top two are more than 1e-5 apart;
+   8d learning: DistMult, ComplEx (n3) and TuckER, ncomp 64, under the CE
+      recipe on `latent_kg(2000, 12, 16000, kind="bilinear", seed=5)`:
+      each filtered MRR at least 5x its MRR at init, and ComplEx's triple
+      classification accuracy above 0.6.
 
 Prints one JSON line with the kernel table, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.
@@ -97,6 +119,7 @@ at this tree's shapes: parent against change on one card.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -110,18 +133,23 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from skge_torch import (ERMLP, RESCAL, AdaGrad, BernoulliSampler,
+from skge_torch import (ERMLP, MODELS, RESCAL, AdaGrad, BernoulliSampler,
                         CorruptedSampler, FilteredRankingEval, HolE,
-                        LCWASampler, RandomModeSampler, SharedNegativeSampler,
-                        TrainConfig, Trainer, TrainState, TransE, init_state,
-                        load_checkpoint, make_epoch_fn, make_pairwise_step,
-                        make_pointwise_step)
+                        LCWASampler, RandomModeSampler, ReciprocalEvalWrapper,
+                        SharedNegativeSampler, TrainConfig, Trainer, TrainState,
+                        TransE, init_state, load_checkpoint, make_epoch_fn,
+                        make_pairwise_step, make_pointwise_step,
+                        triple_classification)
 from skge_torch.data import (add_reciprocal_relations, bernoulli_probs,
-                             sorted_train_keys, synthetic_kg, type_index_arrays,
-                             unigram_logits)
+                             latent_assign, latent_kg, latent_queries,
+                             latent_scores, latent_tables, sorted_train_keys,
+                             synthetic_kg, type_index_arrays, unigram_logits)
+from skge_torch.evaluation import classification_negatives
 from skge_torch.experiment import Experiment, make_parser
 from skge_torch.models.base import ACTIVATIONS
 from skge_torch.ops import _build, cuda_outer, cuda_segment
+from skge_torch.training import regularized
+from skge_torch.utils.debug import assert_finite_state
 
 # the graphs the paths train on: FB15k's shape (DATA) and WN18's
 DATA = SimpleNamespace(n_entities=14_951, n_relations=1_345, n_train=483_142,
@@ -189,6 +217,23 @@ FB15K_ARGS = ["--synthetic-entities", "14951", "--synthetic-relations", "1345",
               "--synthetic-train", "483142"]
 SELFADV_K = 8192  # RECIPES.md's --selfadv and --sampled-ce pools
 OUT = "build/chip_smoke"  # phase 7's checkpoints and metrics
+# phase 8: the factorization family at the CLI's width (--ncomp 150), the
+# shared-pool margin step of `python bench.py` with RECIPES.md:14's --n3
+FACTORIZATION = ("distmult", "complex", "simple", "tucker", "quate")
+FACT = SimpleNamespace(**{**vars(TRANSE), "n3": 1e-3, "steps": 10, "warm": True,
+                          "profile": True})
+# RECIPES.md:14, the best-quality recipe of the multiplicative family
+RECIPE_14 = ["--model", "complex", "--ce", "--reciprocal", "--optimizer", "adam",
+             "--lr", "1e-3", "--label-smoothing", "0.1", "--n3", "1e-3"]
+# RESULTS.md's 41k-scale bilinear KG (WN18's shape), and the learning gate's
+# (tests/test_quality_gates.py:104-108, with a valid split for the
+# classification thresholds)
+LATENT_41K = dict(n_entities=40_943, n_relations=18, n_train=141_442,
+                  latent_dim=8, seed=0, kind="bilinear")
+LATENT_GATE = dict(n_entities=2_000, n_relations=12, n_train=16_000, n_valid=400,
+                   n_test=400, latent_dim=8, seed=5, kind="bilinear")
+LATENT_CHUNK = 16384  # latent_kg's queries per sweep
+GATE_NCOMP, GATE_EPOCHS, GATE_NB = 64, 20, 20  # 8d's CE runs
 
 
 def check(ok: bool, what: str) -> None:
@@ -334,16 +379,27 @@ def check_segment_sum(name, idx, grads, nrows, vector) -> float:
     return err
 
 
+# the 16-byte path's timed shapes, each beside the plain version
+VECTOR_TIMED = ("slice", "iid", "selfadv", "ComplEx, SimplE", "QuatE")
+
+
 def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
     """`segment_sum` against `segment_sum_reference` on the same card
     inputs, on the 16-byte and the scalar path (`verify`); returns (max abs
     error, [timed shapes]): the TransE slice's shape first, then the iid
-    TransE step's (s, o and 16 corruptions into E, and R, in one scatter)
-    and the self-adversarial step's (k = 8,192), then the scalar path at
+    TransE step's (s, o and 16 corruptions into E, and R, in one scatter),
+    the self-adversarial step's (k = 8,192) and the shared pool's at
+    ComplEx's and SimplE's 2 x 150-wide rows (D = 304) and QuatE's 4 x 150
+    (D = 604), then the scalar path at
     D = 151 and at RESCAL's W counts (D = 1), each beside `index_add_` alone
     on the same (in-range) ids."""
     e, r = DATA.n_entities, DATA.n_relations
-    width = TRANSE.ncomp + 1 + (-(TRANSE.ncomp + 1) % 4)  # aggregate's padded count channel
+
+    def padded(row):  # aggregate's count channel, padded to a multiple of 4 columns
+        return row + 1 + (-(row + 1) % 4)
+
+    width = padded(TRANSE.ncomp)  # 152
+    complex_w, quate_w = padded(2 * FACT.ncomp), padded(4 * FACT.ncomp)  # 304, 604
     t_slice, rows = 3 * _batch_size(TRANSE) + TRANSE.k, e + r
     t_iid = (3 + 2 * TRANSE_IID.negatives) * _batch_size(TRANSE_IID)
     t_selfadv = 3 * _batch_size(TRANSE) + SELFADV_K
@@ -352,6 +408,8 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
         ("slice", t_slice, rows, width, 0, rows, 0, True),
         ("iid", t_iid, rows, width, 0, rows, 0, True),
         ("selfadv", t_selfadv, rows, width, 0, rows, 0, True),
+        ("ComplEx, SimplE", t_slice, rows, complex_w, 0, rows, 0, True),
+        ("QuatE", t_slice, rows, quate_w, 0, rows, 0, True),
         ("ids<0 and >=R dropped", t_slice, rows, width, -50, rows + 50, 0, True),
         ("D=151 scalar path", t_slice, rows, width - 1, 0, rows, 0, False),
         ("misaligned view", t_slice, rows, width, 0, rows, 1, False),
@@ -368,15 +426,14 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
         grads = torch.randn(t * d + shift, generator=gen, device=dev)[shift:].view(t, d)
         if verify:
             worst = max(worst, check_segment_sum(name, idx, grads, nrows, vector))
-        if name in ("slice", "iid", "selfadv", "D=151 scalar path",
-                    "RESCAL's W counts, D=1"):
+        if name in (*VECTOR_TIMED, "D=151 scalar path", "RESCAL's W counts, D=1"):
             timed[name] = (idx, grads, nrows)
     shapes = []
     for name, (idx, grads, nrows) in timed.items():
         t, d = grads.shape
         table = torch.zeros(nrows, d, device=dev)
         fns = {"kernel": cuda_segment.segment_sum}
-        scalar = name not in ("slice", "iid", "selfadv")
+        scalar = name not in VECTOR_TIMED
         if not scalar:  # the plain version at the 16-byte path's shapes
             fns["plain"] = cuda_segment.segment_sum_reference
         fns["library"] = lambda i, g, _: table.index_add_(0, i, g)
@@ -479,7 +536,9 @@ def make_model(cfg, ds):
         return RESCAL(ds.n_entities, ds.n_relations, ncomp=cfg.ncomp, rparam=cfg.rparam)
     if cfg.model == "hole":
         return HolE(ds.n_entities, ds.n_relations, ncomp=cfg.ncomp, rparam=cfg.rparam)
-    return ERMLP(ds.n_entities, ds.n_relations, ncomp=cfg.ncomp, nhidden=cfg.nhidden)
+    if cfg.model == "ermlp":
+        return ERMLP(ds.n_entities, ds.n_relations, ncomp=cfg.ncomp, nhidden=cfg.nhidden)
+    return MODELS[cfg.model](ds.n_entities, ds.n_relations, ncomp=cfg.ncomp, n3=cfg.n3)
 
 
 def make_sampler(cfg, ds, dev):
@@ -516,9 +575,10 @@ def make_step(cfg, model, opt, sampler, aggregate="dense_pallas"):
     return make_pointwise_step(model, opt, sampler, aggregate=aggregate)
 
 
-def profile(step, state, batches, mask, step_ms, tag) -> None:
+def profile(step, state, batches, mask, step_ms, tag) -> float:
     """The card's busy time per step over 5 steps (torch.profiler), its
-    share of the unprofiled step time, and the operators that take it."""
+    share of the unprofiled step time, and the operators that take it;
+    returns the busy ms."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -541,11 +601,14 @@ def profile(step, state, batches, mask, step_ms, tag) -> None:
     log(f"[{tag}] device time by operator: " + ", ".join(
         f"{e.key} {e.self_device_time_total / 5e3:.4f} ms "
         f"({100 * e.self_device_time_total / total:.1f}%)" for e in ops[:10]))
+    return busy
 
 
 def train(cfg, ds, dev, tag="4"):
-    """Phase 4: one path of the port. Returns (model, opt, initial state,
-    trained state, {kernel: launches during training})."""
+    """Phase 4 (and 8a): one path of the port. With `cfg.warm`, one step
+    runs before the clock and the counts. Returns (model, opt, initial
+    state, trained state, {kernel: launches during training}, the card's
+    busy ms per step or None)."""
     model = make_model(cfg, ds)
     opt = AdaGrad(lr=cfg.lr)
     step = make_step(cfg, model, opt, make_sampler(cfg, ds, dev))
@@ -555,7 +618,7 @@ def train(cfg, ds, dev, tag="4"):
     b = _batch_size(cfg, n)
     # a few steps over the first full batches of one shuffle
     perm = torch.randperm(n, generator=state0.generator, device=dev)
-    batches = xs[perm[: max(cfg.steps, 5) * b]].reshape(-1, b, 3)
+    batches = xs[perm[: (max(cfg.steps, 5) + 1) * b]].reshape(-1, b, 3)
     mask = torch.ones(b, device=dev)
     if cfg.steps == 0:
         epoch = make_epoch_fn(step, n, cfg.nbatches)
@@ -578,9 +641,9 @@ def train(cfg, ds, dev, tag="4"):
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     state = state0
-    for mod, _, _ in KERNELS.values():
-        mod.launches = 0
-    cuda_segment.vector_launches = 0
+    if getattr(cfg, "warm", False):  # one step before the clock and the counts
+        state, _ = step(state, batches[-1], mask)
+    reset_counts()
     for e, run in enumerate(runs):
         _sync(dev)
         t0 = time.perf_counter()
@@ -592,8 +655,7 @@ def train(cfg, ds, dev, tag="4"):
             f"violations {int(m.nviolations.sum())}  loss {float(m.loss.sum()):.6e}  "
             f"{dt:.3f} s  step {1e3 * dt / steps:.3f} ms  "
             f"{scored / dt:.6e} scored triples/s")
-    launches = {name: mod.launches for name, (mod, _, _) in KERNELS.items()}
-    launches[VECTOR] = cuda_segment.vector_launches
+    launches = read_counts()
     if dev.type == "cuda":
         log(f"[{tag}] peak device memory "
             f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
@@ -605,9 +667,10 @@ def train(cfg, ds, dev, tag="4"):
         norm = float(state.params["E"].norm(dim=1).max())
         log(f"[{tag}] max row norm of E {norm:.7f}")
         check(norm <= 1.0 + 1e-5, "normless1: max row norm of E <= 1 + 1e-5")
+    busy = None
     if cfg.profile and dev.type == "cuda":
-        profile(step, state, batches, mask, 1e3 * dt / steps, tag)
-    return model, opt, state0, state, launches
+        busy = profile(step, state, batches, mask, 1e3 * dt / steps, tag)
+    return model, opt, state0, state, launches, busy
 
 
 def expected_launches(cfg) -> dict:
@@ -973,7 +1036,7 @@ def loss_step_against_cpu(tag, trainer, xs_np) -> None:
     rows = torch.randperm(len(xs_np), generator=gen)[:b]
     batch = torch.as_tensor(xs_np, dtype=torch.int64)[rows]
     mask = torch.ones(b)
-    sampler = trainer.sampler
+    sampler = trainer.sampler if cfg.loss != "ce" else None  # full CE draws nothing
     if sampler is not None:
         ids = sampler.draw(gen)
         sampler = FixedPool(ids, logits=sampler.logits)
@@ -1009,6 +1072,146 @@ def loss_step_against_cpu(tag, trainer, xs_np) -> None:
         check(diff <= STEP_TOL, f"{tag}: one step card vs cpu, {name} within {STEP_TOL}")
 
 
+def factorization_margin(graph, dev, launches) -> None:
+    """Phase 8a: each factorization model's shared-pool margin step at
+    ncomp 150 with n3 (`FACT`), 10 warm steps with the counts set to 0
+    just before and held to 1 K1 a step on the 16-byte path after (E and R
+    in one scatter; TuckER's core W takes the dense update, no scatter),
+    the busy time, `assert_finite_state`, and one step on the card against
+    the CPU from warm accumulators. For ComplEx, the N3 term's device time
+    over its whole tables beside the busy time."""
+    for name in FACTORIZATION:
+        cfg = SimpleNamespace(**{**vars(FACT), "model": name})
+        model, opt, state0, state, counts, busy = train(cfg, graph, dev, "8a")
+        want = _launches(cfg.steps, 0, cfg.steps)
+        check(dev.type != "cuda" or counts == want,
+              f"8a {name}: launches {counts}, want {want}")
+        for k in launches:
+            launches[k] += counts[k]
+        assert_finite_state(state)
+        if name == "complex" and busy is not None:
+            tables = {p: state.params[p] for p in model.reg_row_params}
+            zeros = {p: torch.zeros_like(v) for p, v in tables.items()}
+            n3_ms = device_ms(lambda: [regularized(model, p, zeros[p], v)
+                                       for p, v in tables.items()], (), n=20)
+            log(f"[8a] complex: the N3 term over the whole E and R tables "
+                f"{n3_ms:.4f} ms a step, {100 * n3_ms / busy:.2f}% of the busy "
+                f"{busy:.4f} ms")
+        step_against_cpu(cfg, graph, model, opt, state0._replace(opt_state=state.opt_state),
+                         dev, "8a")
+
+
+def complex_recipe(dev, launches) -> None:
+    """Phase 8b: RECIPES.md:14 for ComplEx through `Experiment`, 10 steps of
+    its 9,663-triple batch (no scatter: full CE updates every table), the
+    warm step, busy time and peak memory, `assert_finite_state`, then one
+    step on the card against the CPU with N3 on, every Adam slot too."""
+    cpu = ["--cpu"] if dev.type == "cpu" else []
+    exp = Experiment(make_parser().parse_args(cpu + FB15K_ARGS + RECIPE_14 + [
+        "--me", "1", "--mode", "none"]))
+    check(exp.model.n3 == 1e-3 and exp.model.ncomp == 150, "8b: ComplEx ncomp 150, n3")
+    tr = exp.trainer
+    b = -(-len(exp.ds.train) // tr.config.nbatches)
+    tr.config = dataclasses.replace(tr.config, nbatches=10)
+    xs = exp.ds.train[: 10 * b]
+    drive(dev, "8b", "ComplEx full CE, reciprocal, Adam, N3 (RECIPES.md:14)", tr, xs,
+          lambda: tr.fit(xs), _launches(0, 0, 0), exp.ds.n_entities * len(xs), launches)
+    assert_finite_state(tr.state)
+    warm_step(tr, xs, "8b", exp.ds.n_entities * len(xs), steps=5)
+    loss_step_against_cpu("8b", tr, xs)
+
+
+def latent_sweep(dev) -> None:
+    """Phase 8c: `latent_kg(kind='bilinear')` built on the card at the 41k
+    scale, timed; then its first chunk of queries assigned again on the
+    card and on the CPU: each card object scores within 1e-5 of the CPU's
+    best, and equals the CPU's argmax wherever the CPU's top two are more
+    than 1e-5 apart; the dataset holds the card's object for every one of
+    those queries it kept."""
+    kw = LATENT_41K
+    _sync(dev)
+    t0 = time.perf_counter()
+    ds = latent_kg(**kw, device=dev)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    check(ds.train.shape == (kw["n_train"], 3) and ds.train.dtype == np.int32,
+          "8c: the latent KG's shape")
+    log(f"[8c] latent_kg bilinear {kw['n_entities']} entities, {kw['n_relations']} "
+        f"relations, {kw['n_train']} triples, latent_dim {kw['latent_dim']}: built in "
+        f"{dt:.3f} s on {dev}")
+    rng = np.random.default_rng(kw["seed"])
+    Z, Rel = latent_tables(rng, kw["n_entities"], kw["n_relations"], kw["latent_dim"],
+                           kw["kind"])
+    s = rng.integers(0, kw["n_entities"], kw["n_train"]).astype(np.int32)[:LATENT_CHUNK]
+    p = rng.integers(0, kw["n_relations"], kw["n_train"]).astype(np.int32)[:LATENT_CHUNK]
+    eps = np.zeros((1, kw["latent_dim"]), np.float32)
+    tables = {}
+    for where in (dev, torch.device("cpu")):
+        Zd, Rd = torch.as_tensor(Z, device=where), torch.as_tensor(Rel, device=where)
+        tables[where.type] = (Zd, Rd, torch.sum(Zd * Zd, dim=1))
+    o_dev = latent_assign(kw["kind"], *tables[dev.type], s, p, eps, None)
+    Zc, Rc, znc = tables["cpu"]
+    sc = latent_scores(kw["kind"], latent_queries(kw["kind"], Zc, Rc, torch.as_tensor(s).long(),
+                                                  torch.as_tensor(p).long(),
+                                                  torch.as_tensor(eps)), Zc, znc)
+    top2 = torch.topk(sc, 2, dim=1).values
+    picked = sc[torch.arange(len(s)), torch.as_tensor(o_dev).long()]
+    short = float((top2[:, 0] - picked).max())
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-5
+    o_cpu = torch.argmax(sc, dim=1).numpy()
+    differ = int((o_cpu != o_dev).sum())
+    differ_clear = int(((o_cpu != o_dev) & clear.numpy()).sum())
+    log(f"[8c] {len(s)} queries again on {dev} and on the CPU: the card's objects at most "
+        f"{short:.3e} below the CPU's best; {differ} differ, {differ_clear} of them where the "
+        f"top two are more than 1e-5 apart ({int((~clear).sum())} queries are not)")
+    check(short <= 1e-5, "8c: every card object within 1e-5 of the CPU's best score")
+    check(differ_clear == 0, "8c: card and CPU agree wherever the top-2 gap exceeds 1e-5")
+    objs = {(a, c): b for a, b, c in ds.train.tolist()}
+    kept = [(objs[(a, c)], o) for a, c, o in zip(s.tolist(), p.tolist(), o_dev.tolist())
+            if (a, c) in objs]
+    check(all(x == y for x, y in kept), "8c: the dataset holds the card's objects")
+    log(f"[8c] {len(kept)} of the chunk's queries are in the train split, each with "
+        f"the card's object")
+
+
+def learning_gate(dev) -> None:
+    """Phase 8d: DistMult, ComplEx (n3) and TuckER under the CE recipe on
+    the learning gate's bilinear KG, built on the card: each filtered MRR
+    at least 5x its MRR at init (the order is printed, not gated), and
+    ComplEx's triple-classification accuracy above 0.6."""
+    ds = latent_kg(**LATENT_GATE, device=dev)
+    dsr = add_reciprocal_relations(ds)
+    known = ds.all_triples()
+    mrrs = {}
+    for name, kw in (("distmult", {}), ("complex", {"n3": 1e-3}), ("tucker", {})):
+        model = MODELS[name](dsr.n_entities, dsr.n_relations, GATE_NCOMP, **kw)
+        ev = FilteredRankingEval(ReciprocalEvalWrapper(model), ds.test, known, batch_size=512)
+        tr = Trainer(model, None, TrainConfig(
+            max_epochs=GATE_EPOCHS, nbatches=GATE_NB, loss="ce", ce_directions=("o",),
+            label_smoothing=0.1, optimizer="adam", learning_rate=1e-3), device=dev)
+        init = ev(init_state(model, tr.opt, torch.Generator(device=dev).manual_seed(0))
+                  .params).mrr
+        t0 = time.perf_counter()
+        state = tr.fit(dsr.train)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        assert_finite_state(state)
+        mrrs[name] = ev(state.params).mrr
+        log(f"[8d] {name}{' n3 1e-3' if kw else ''}: filtered MRR {init:.4f} at init, "
+            f"{mrrs[name]:.4f} after {GATE_EPOCHS} epochs of {GATE_NB} CE steps "
+            f"({dt:.2f} s), {mrrs[name] / init:.1f}x")
+        check(mrrs[name] >= 5 * init, f"8d: {name}'s MRR at least 5x its MRR at init")
+        if name == "complex":
+            neg_v = classification_negatives(ds.valid, ds.n_entities, known, seed=1)
+            neg_t = classification_negatives(ds.test, ds.n_entities, known, seed=2)
+            acc = triple_classification(model, state.params, ds.valid, neg_v, ds.test,
+                                        neg_t)["accuracy"]
+            log(f"[8d] complex: triple classification accuracy {acc:.4f}")
+            check(acc > 0.6, "8d: ComplEx's triple-classification accuracy above 0.6")
+    log("[8d] order by filtered MRR: " + " > ".join(
+        f"{n} {m:.4f}" for n, m in sorted(mrrs.items(), key=lambda x: -x[1])))
+
+
 def main(argv) -> int:
     if argv not in ([], ["--kernel-times"]):
         print("usage: python3 chip_smoke.py [--kernel-times]", file=sys.stderr)
@@ -1032,7 +1235,7 @@ def main(argv) -> int:
     launches = dict.fromkeys([*KERNELS, VECTOR], 0)
     trained = {}
     for cfg, tag in PATHS:
-        *run, counts = train(cfg, graphs[cfg.data], dev, tag)
+        *run, counts, _ = train(cfg, graphs[cfg.data], dev, tag)
         check(counts == expected_launches(cfg),
               f"{cfg.model} {cfg.loss} {cfg.sampler}: launches {counts}, "
               f"want {expected_launches(cfg)}")
@@ -1048,15 +1251,26 @@ def main(argv) -> int:
                          unique_too=cfg.model == "hole")
         evaluate(ds, model, state, dev, "6" + tag)
     t_eval = time.perf_counter()
+    fb15k = graphs["fb15k"]
     del graphs, trained
     runs = surface(dev, launches)
     t_surface = time.perf_counter()
     for tag, (trainer, xs) in runs.items():
         loss_step_against_cpu(tag, trainer, xs)
+    t_5e = time.perf_counter()
+    factorization_margin(fb15k, dev, launches)
+    t_8a = time.perf_counter()
+    complex_recipe(dev, launches)
+    t_8b = time.perf_counter()
+    latent_sweep(dev)
+    t_8c = time.perf_counter()
+    learning_gate(dev)
     t_end = time.perf_counter()
     log(f"[time] phases 1-2 {t_build - t0:.1f} s, 3 {t_kernels - t_build:.1f} s, "
         f"4 {t_train - t_kernels:.1f} s (graphs included), 5-6 {t_eval - t_train:.1f} s, "
-        f"7 {t_surface - t_eval:.1f} s (graphs included), 5e-5g {t_end - t_surface:.1f} s")
+        f"7 {t_surface - t_eval:.1f} s (graphs included), 5e-5g {t_5e - t_surface:.1f} s, "
+        f"8 {t_end - t_5e:.1f} s (8a {t_8a - t_5e:.1f}, 8b {t_8b - t_8a:.1f}, "
+        f"8c {t_8c - t_8b:.1f}, 8d {t_end - t_8c:.1f})")
     # each kernel at the TransE or RESCAL slice's shape, its other timed
     # shapes under "shapes"
     log(json.dumps({"kernels": [{

@@ -2,14 +2,17 @@
 
 The JAX package `skge_tpu` is the reference; module and function names
 match it. The port holds the reference family (TransE, RESCAL, HolE,
-ER-MLP) trained two ways: reference-exact, with iid negatives from the
-random-mode, LCWA, corrupted or Bernoulli sampler (the fused pairwise
-step, or the generic expanded-pair pairwise and pointwise steps), and
-against a shared negative pool (pairwise margin, pointwise logistic,
-self-adversarial and sampled cross-entropy losses); and full 1-vs-all
-cross entropy. Row-sparse AdaGrad, SGD or lazy Adam with lr schedules,
-filtered-ranking evaluation, the `Trainer`, npz checkpoints that the JAX
-package also reads, and the `experiment` CLI
+ER-MLP) and the factorization family (DistMult, ComplEx, SimplE, TuckER,
+QuatE, with the nuclear 3-norm `n3`), trained two ways: reference-exact,
+with iid negatives from the random-mode, LCWA, corrupted or Bernoulli
+sampler (the fused pairwise step, or the generic expanded-pair pairwise
+and pointwise steps), and against a shared negative pool (pairwise
+margin, pointwise logistic, self-adversarial and sampled cross-entropy
+losses); and full 1-vs-all cross entropy. Row-sparse AdaGrad, SGD or lazy
+Adam with lr schedules, filtered-ranking evaluation and triple
+classification, the `Trainer`, npz checkpoints that the JAX package also
+reads, the learnable synthetic KGs (`data.latent_kg`), the runtime checks
+of `utils.debug`, and the `experiment` CLI
 (`python -m skge_torch.experiment`). The gradient scatters are
 hand-written CUDA kernels (`skge_torch.ops.cuda_segment`, and
 `skge_torch.ops.cuda_outer` for RESCAL's factored shared-pool W gradient).
@@ -19,8 +22,10 @@ hand-written CUDA kernels (`skge_torch.ops.cuda_segment`, and
 """
 
 from skge_torch.evaluation import (FilteredRankingEval, ReciprocalEvalWrapper,
-                                   evaluate, relation_categories)
-from skge_torch.models import ERMLP, MODELS, RESCAL, HolE, KGEModel, TransE
+                                   evaluate, relation_categories,
+                                   triple_classification)
+from skge_torch.models import (ERMLP, MODELS, RESCAL, ComplEx, DistMult, HolE,
+                               KGEModel, QuatE, SimplE, TransE, TuckER)
 from skge_torch.optim import (OPTIMIZERS, SCHEDULES, SGD, AdaGrad, Adam,
                               WarmupCosine, WarmupLinear, make_schedule)
 from skge_torch.sampling import (SAMPLERS, BernoulliSampler, CorruptedSampler,
@@ -50,7 +55,9 @@ __all__ = [
     "Adam",
     "AsyncCheckpointer",
     "BernoulliSampler",
+    "ComplEx",
     "CorruptedSampler",
+    "DistMult",
     "ERMLP",
     "FilteredRankingEval",
     "HolE",
@@ -59,6 +66,7 @@ __all__ = [
     "MODELS",
     "MetricsLogger",
     "OPTIMIZERS",
+    "QuatE",
     "RESCAL",
     "RandomModeSampler",
     "ReciprocalEvalWrapper",
@@ -66,11 +74,13 @@ __all__ = [
     "SCHEDULES",
     "SGD",
     "SharedNegativeSampler",
+    "SimplE",
     "StepMetrics",
     "TrainConfig",
     "TrainState",
     "Trainer",
     "TransE",
+    "TuckER",
     "WarmupCosine",
     "WarmupLinear",
     "evaluate",
@@ -87,4 +97,5 @@ __all__ = [
     "make_selfadv_step",
     "relation_categories",
     "save_checkpoint",
+    "triple_classification",
 ]

@@ -10,17 +10,24 @@ copied rather than imported because importing `skge_tpu.data` imports the
 JAX package. They give the same arrays as `skge_tpu.data` for the same
 arguments and seed.
 
+`latent_kg` builds the learnable synthetic KGs: NumPy draws as in the JAX
+package, and the nearest-object sweep in PyTorch on `device` (the card by
+default). It equals the JAX package's dataset wherever no query's best two
+candidates lie within fp32 rounding of each other.
+
 All triples are (N, 3) int32 arrays in (s, o, p) column order; the training
 code moves them to the device as int64.
 """
 
 from __future__ import annotations
 
+import logging
 import pickle
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 @dataclass
@@ -170,6 +177,255 @@ def synthetic_kg(
         _, first = np.unique(keys, return_index=True)
         triples = triples[np.sort(first)]
     triples = triples[:total]
+    return Dataset(
+        train=triples[:n_train],
+        valid=triples[n_train : n_train + n_valid],
+        test=triples[n_train + n_valid :],
+        n_entities=n_entities,
+        n_relations=n_relations,
+    )
+
+
+# latent_kg switches its object-assignment sweep from one (chunk, n_e)
+# matmul to a blocked running-argmax scan above this entity count (device
+# memory: the full score matrix stops fitting). Module-level so tests can
+# lower it and pin blocked == single-matmul at CPU-sized vocabularies.
+_BLOCKED_SWEEP_THRESHOLD = 1 << 21
+
+LATENT_KINDS = ("translational", "bilinear", "rotational", "lattice")
+
+
+def latent_tables(rng: np.random.Generator, n_entities: int, n_relations: int,
+                  latent_dim: int, kind: str, rank: Optional[int] = None):
+    """The latent points Z (n_e, latent_dim) and relation parameters Rel of
+    `latent_kg`'s swept kinds, fp32, drawn from `rng` in its order."""
+    Z = rng.normal(size=(n_entities, latent_dim)).astype(np.float32)
+    if kind == "bilinear":
+        # the unit sphere: the bilinear argmax is then direction-only
+        Z /= np.maximum(np.linalg.norm(Z, axis=1, keepdims=True), 1e-12)
+        r = rank or max(2, latent_dim // 2)
+        A = rng.normal(size=(n_relations, latent_dim, r))
+        B = rng.normal(size=(n_relations, latent_dim, r))
+        Rel = (A @ B.transpose(0, 2, 1) / np.sqrt(r)).astype(np.float32)
+    else:
+        Z /= np.maximum(np.linalg.norm(Z, axis=1, keepdims=True), 1.0)
+        if kind == "translational":
+            Rel = (rng.normal(size=(n_relations, latent_dim)) * 0.5).astype(
+                np.float32)
+        else:  # rotational: per-dimension phases in (-pi, pi]
+            Rel = rng.uniform(-np.pi, np.pi,
+                              size=(n_relations, latent_dim // 2)).astype(np.float32)
+    return Z, Rel
+
+
+def latent_queries(kind: str, Z: torch.Tensor, Rel: torch.Tensor,
+                   s: torch.Tensor, p: torch.Tensor, eps: torch.Tensor):
+    """(B, latent_dim) queries of the (s, p) pairs, noise `eps` added."""
+    if kind == "translational":
+        return Z[s] + Rel[p] + eps
+    if kind == "rotational":
+        h = Z.shape[1] // 2
+        a, b = Z[s, :h], Z[s, h:]
+        c, sn = torch.cos(Rel[p]), torch.sin(Rel[p])
+        return torch.cat([a * c - b * sn, a * sn + b * c], dim=1) + eps
+    # bilinear: query = z_s^T W_p, scored by dot
+    return torch.einsum("bd,bde->be", Z[s], Rel[p]) + eps
+
+
+def latent_scores(kind: str, q: torch.Tensor, Z: torch.Tensor,
+                  zn: torch.Tensor) -> torch.Tensor:
+    """(B, n) scores of every candidate row of `Z` (squared norms `zn`):
+    the query's object is their first argmax. Bilinear: the dot;
+    otherwise minus the squared distance less |q|^2, -(|z|^2 - 2 q.z)."""
+    dots = q @ Z.T
+    if kind == "bilinear":
+        return dots
+    return -(zn[None, :] - 2.0 * dots)
+
+
+def latent_assign(kind: str, Z: torch.Tensor, Rel: torch.Tensor, zn: torch.Tensor,
+                  s, p, eps, block: Optional[int]) -> np.ndarray:
+    """Objects of the (s, p) queries: the argmax of `latent_scores`, over
+    every entity at once, or (`block`) a running argmax over blocks of
+    entities that keeps the earlier block on a tie (strict >), as argmax
+    keeps the first maximum. The last block is the remainder, so no padded
+    entity takes part."""
+    dev = Z.device
+    q = latent_queries(kind, Z, Rel, torch.as_tensor(s, device=dev).long(),
+                       torch.as_tensor(p, device=dev).long(),
+                       torch.as_tensor(eps, device=dev))
+    if block is None:
+        o = torch.argmax(latent_scores(kind, q, Z, zn), dim=1)
+    else:
+        best_val = torch.full((q.shape[0],), -torch.inf, device=dev)
+        o = torch.zeros(q.shape[0], dtype=torch.int64, device=dev)
+        for lo in range(0, Z.shape[0], block):
+            sc = latent_scores(kind, q, Z[lo:lo + block], zn[lo:lo + block])
+            loc = torch.argmax(sc, dim=1)
+            val = torch.gather(sc, 1, loc[:, None])[:, 0]
+            better = val > best_val
+            best_val = torch.where(better, val, best_val)
+            o = torch.where(better, lo + loc, o)
+    return o.to(torch.int32).cpu().numpy()
+
+
+def latent_kg(
+    n_entities: int,
+    n_relations: int,
+    n_train: int,
+    n_valid: int = 0,
+    n_test: int = 0,
+    latent_dim: int = 16,
+    noise: float = 0.0,
+    seed: int = 0,
+    kind: str = "translational",
+    rank: Optional[int] = None,
+    device="cuda",
+) -> Dataset:
+    """Learnable synthetic KG with a chosen latent geometry, the JAX
+    package's `latent_kg`:
+
+    - ``'translational'``: entities are latent points z_e (unit ball),
+      relations translations t_p; o = the nearest entity to z_s + t_p
+      (TransE geometry);
+    - ``'bilinear'``: unit-vector entities, relations random low-rank
+      matrices W_p = A B^T / sqrt(rank) (``rank`` defaults to
+      latent_dim // 2); o = argmax_o (z_s^T W_p) . z_o (RESCAL, TuckER,
+      DistMult geometry);
+    - ``'rotational'``: complex latents ([re | im], latent_dim even),
+      per-dimension phases theta_p; o = the nearest entity to z_s rotated
+      by e^{i theta_p} (RotatE, ComplEx, HolE geometry);
+    - ``'lattice'``: entities are the points of a b^latent_dim integer
+      lattice (n_entities = b**latent_dim), relations continuous
+      translations of up to ~3 lattice steps; o = the exact nearest lattice
+      point, in closed form on the host, no sweep.
+
+    Gaussian `noise` is added to the query before the argmax. The draws
+    are NumPy's from `seed`, in the JAX package's order; the sweep is one
+    (16,384, n_e) fp32 matmul a chunk on `device` ("cuda" unless the caller
+    asks for the CPU), or above `_BLOCKED_SWEEP_THRESHOLD` entities a
+    running argmax over blocks of 131,072 entities, 4,096 queries a chunk.
+    Triples are int32, deduplicated, and permuted.
+    """
+    if kind not in LATENT_KINDS:
+        raise ValueError(f"unknown latent kind {kind!r}")
+    if kind == "rotational" and latent_dim % 2 != 0:
+        raise ValueError("rotational geometry needs an even latent_dim")
+    if kind == "lattice":
+        return _lattice_kg(n_entities, n_relations, n_train, n_valid, n_test,
+                           latent_dim, noise, seed)
+
+    rng = np.random.default_rng(seed)
+    Z, Rel = latent_tables(rng, n_entities, n_relations, latent_dim, kind, rank)
+    total = n_train + n_valid + n_test
+    if noise == 0.0 and total > 0.9 * n_entities * n_relations:
+        # with noise=0, o is a function of (s, p): at most n_e * n_r unique
+        # triples exist, and drawing the last few is coupon-collector slow
+        raise ValueError(
+            f"total={total} exceeds 90% of the {n_entities * n_relations} "
+            "unique noise-free triples; lower the split sizes or set noise>0"
+        )
+    device = torch.device(device)
+    Zd = torch.as_tensor(Z, device=device)
+    Rd = torch.as_tensor(Rel, device=device)
+    zn = torch.sum(Zd * Zd, dim=1)
+    chunk = 16384
+    big = n_entities > _BLOCKED_SWEEP_THRESHOLD
+    block = None
+    if big:
+        block = min(1 << 17, -(-n_entities // 2))
+        chunk = 4096  # a (chunk, block) fp32 tile is 2 GB at the full block
+
+    triples = np.zeros((0, 3), np.int32)
+    while triples.shape[0] < total:
+        # the small regime redraws the FULL total each round (the JAX
+        # package's rng stream); the big regime only the dedup shortfall
+        draw = total if not big else min(
+            total, max(chunk, int((total - triples.shape[0]) * 1.1)))
+        s = rng.integers(0, n_entities, draw).astype(np.int32)
+        p = rng.integers(0, n_relations, draw).astype(np.int32)
+        o = np.zeros(draw, np.int32)
+        for lo in range(0, draw, chunk):
+            eps = ((rng.normal(size=(chunk, latent_dim)) * noise).astype(np.float32)
+                   if noise > 0.0 else np.zeros((1, latent_dim), np.float32))
+            hi = min(lo + chunk, draw)
+            if big and (lo // chunk) % 512 == 0:
+                logging.getLogger(__name__).info(
+                    "latent_kg sweep: %d/%d queries assigned", lo, draw)
+            o[lo:hi] = latent_assign(kind, Zd, Rd, zn, s[lo:hi], p[lo:hi],
+                                      eps[:hi - lo], block)
+        cand = np.stack([s, o, p], axis=1)
+        triples = np.concatenate([triples, cand])
+        keys = encode_keys_np(triples, n_entities, n_relations)
+        _, first = np.unique(keys, return_index=True)
+        triples = triples[np.sort(first)]
+    triples = triples[rng.permutation(triples.shape[0])][:total]
+    return Dataset(
+        train=triples[:n_train],
+        valid=triples[n_train : n_train + n_valid],
+        test=triples[n_train + n_valid :],
+        n_entities=n_entities,
+        n_relations=n_relations,
+    )
+
+
+def _lattice_kg(
+    n_entities: int,
+    n_relations: int,
+    n_train: int,
+    n_valid: int,
+    n_test: int,
+    latent_dim: int,
+    noise: float,
+    seed: int,
+) -> Dataset:
+    """Closed-form lattice geometry (`latent_kg(kind='lattice')`), host
+    NumPy only, bit-equal to the JAX package's.
+
+    Entity e <-> digits(e) in base b (little-endian), latent point
+    z_e = (digits(e) + 0.5) / b in [0, 1]^dl. The Euclidean-nearest
+    lattice point to a query q is componentwise clamp(round(q*b - 0.5)),
+    exact for an axis-aligned box lattice."""
+    b = int(round(n_entities ** (1.0 / latent_dim)))
+    if b ** latent_dim != n_entities:
+        raise ValueError(
+            f"kind='lattice' needs n_entities == b**latent_dim for integer "
+            f"b; {n_entities} is not a perfect {latent_dim}-th power "
+            f"(nearest: {b ** latent_dim} = {b}**{latent_dim})"
+        )
+    rng = np.random.default_rng(seed)
+    # translations of up to ~3 lattice steps, continuous (non-integer)
+    Rel = (rng.uniform(-3.0, 3.0, size=(n_relations, latent_dim)) / b
+           ).astype(np.float32)
+    total = n_train + n_valid + n_test
+    if noise == 0.0 and total > 0.9 * n_entities * n_relations:
+        raise ValueError(
+            f"total={total} exceeds 90% of the {n_entities * n_relations} "
+            "unique noise-free triples; lower the split sizes or set noise>0"
+        )
+    powers = b ** np.arange(latent_dim, dtype=np.int64)
+
+    def assign(s: np.ndarray, p: np.ndarray) -> np.ndarray:
+        digs = (s[:, None].astype(np.int64) // powers[None, :]) % b
+        q = (digs + 0.5) / b + Rel[p]
+        if noise > 0.0:
+            q = q + rng.normal(size=q.shape).astype(np.float32) * noise
+        od = np.clip(np.round(q * b - 0.5), 0, b - 1).astype(np.int64)
+        return (od @ powers).astype(np.int64)
+
+    triples = np.zeros((0, 3), np.int64)
+    while triples.shape[0] < total:
+        draw = min(total, max(4096, int((total - triples.shape[0]) * 1.1)))
+        s = rng.integers(0, n_entities, draw).astype(np.int64)
+        p = rng.integers(0, n_relations, draw).astype(np.int64)
+        o = assign(s, p)
+        cand = np.stack([s, o, p], axis=1)
+        triples = np.concatenate([triples, cand])
+        keys = encode_keys_np(triples, n_entities, n_relations)
+        _, first = np.unique(keys, return_index=True)
+        triples = triples[np.sort(first)]
+    triples = triples[rng.permutation(triples.shape[0])][:total]
+    triples = triples.astype(np.int32)
     return Dataset(
         train=triples[:n_train],
         valid=triples[n_train : n_train + n_valid],

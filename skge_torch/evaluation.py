@@ -13,17 +13,24 @@ and the device writes -inf at those pairs. `RankingResult` splits the
 metrics by direction, relation and relation category
 (`relation_categories`); `ReciprocalEvalWrapper` ranks a model trained on
 reciprocal relations through its inverse relations.
+
+Triple classification (Socher et al. 2013 / the TransH protocol):
+`classification_negatives` draws one filtered corruption per positive,
+`triple_classification` fits per-relation score thresholds on valid and
+reports test accuracy. Scores come from the model's `score_triples` on the
+params' device; the thresholds are searched on the host, as in the JAX
+package.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from skge_torch.data import true_triple_index
+from skge_torch.data import encode_keys_np, true_triple_index
 from skge_torch.models.base import KGEModel, Params
 
 NEG_INF = -1e30
@@ -280,3 +287,113 @@ def relation_categories(triples: np.ndarray, threshold: float = 1.5) -> Dict[int
         hpt = len(tp) / max(1, len(np.unique(tp[:, 1])))
         out[int(p)] = f"{'N' if hpt > threshold else '1'}-{'N' if tph > threshold else '1'}"
     return out
+
+
+def classification_negatives(
+    triples: np.ndarray, n_entities: int, known: np.ndarray, seed: int = 0,
+    ntries: int = 100, n_relations: Optional[int] = None,
+) -> np.ndarray:
+    """One corrupted triple per positive (subject and object corrupted in
+    turn), redrawn against `known` so that no negative is a true triple.
+    Raises ValueError when `ntries` rounds leave a collision."""
+    if n_relations is None:
+        n_relations = int(max(np.max(triples[:, 2]), np.max(known[:, 2]))) + 1
+    rng = np.random.default_rng(seed)
+    known_keys = np.sort(
+        encode_keys_np(np.asarray(known, np.int64), n_entities, n_relations))
+    neg = np.asarray(triples, np.int32).copy()
+    modes = np.arange(len(neg)) % 2
+    pending = np.arange(len(neg))
+    for _ in range(ntries):
+        if len(pending) == 0:
+            break
+        repl = rng.integers(0, n_entities, len(pending)).astype(np.int32)
+        neg[pending, modes[pending]] = repl
+        keys = encode_keys_np(neg[pending].astype(np.int64), n_entities, n_relations)
+        pos = np.searchsorted(known_keys, keys)
+        hit = ((pos < len(known_keys))
+               & (known_keys[np.minimum(pos, len(known_keys) - 1)] == keys))
+        pending = pending[hit]
+    if len(pending):
+        # a known-true triple among the negatives would inflate accuracy
+        raise ValueError(
+            f"{len(pending)} triples still collide with known-true triples "
+            f"after {ntries} rejection rounds; raise ntries or drop the "
+            "offending (near-universal) relations"
+        )
+    return neg
+
+
+def _best_threshold(scores: np.ndarray, labels: np.ndarray) -> float:
+    """Threshold tau maximizing the accuracy of (score >= tau -> positive),
+    at midpoints between DISTINCT adjacent sorted scores or at the two open
+    ends; a cut between two equal scores cannot be realized and is left
+    out."""
+    order = np.argsort(scores)
+    s, y = scores[order], labels[order]
+    # cut i predicts items [i:] positive: correct = #neg in [:i] + #pos in [i:]
+    neg_below = np.concatenate([[0], np.cumsum(y <= 0)])
+    pos_at_or_above = np.concatenate([np.cumsum((y > 0)[::-1])[::-1], [0]])
+    correct = neg_below + pos_at_or_above
+    realizable = np.concatenate([[True], s[1:] > s[:-1], [True]])
+    correct = np.where(realizable, correct, -1)
+    i = int(np.argmax(correct))
+    if i == 0:
+        return -np.inf
+    if i == len(s):
+        return np.inf
+    return float((s[i - 1] + s[i]) / 2.0)
+
+
+@torch.no_grad()
+def triple_classification(
+    model: KGEModel,
+    params: Params,
+    valid_pos: np.ndarray,
+    valid_neg: np.ndarray,
+    test_pos: np.ndarray,
+    test_neg: np.ndarray,
+    batch_size: int = 8192,
+) -> Dict[str, Any]:
+    """Per-relation score thresholds fit on valid, accuracy on test.
+    Relations absent from valid take the global threshold. Scores are
+    `model.score_triples` in batches of `batch_size` on the params'
+    device; the threshold search is exact, on the host.
+
+    Returns {'accuracy', 'thresholds' {p: tau}, 'global_threshold',
+    'per_relation' {p: accuracy}}.
+    """
+    device = next(iter(params.values())).device
+
+    def score(tr: np.ndarray) -> np.ndarray:
+        out = np.empty(len(tr), np.float64)
+        for i in range(0, len(tr), batch_size):
+            chunk = torch.as_tensor(np.asarray(tr[i:i + batch_size]),
+                                    dtype=torch.int64, device=device)
+            out[i:i + len(chunk)] = model.score_triples(params, chunk).cpu().numpy()
+        return out
+
+    v_tr = np.concatenate([valid_pos, valid_neg])
+    v_y = np.concatenate([np.ones(len(valid_pos)), -np.ones(len(valid_neg))])
+    v_s = score(v_tr)
+    global_tau = _best_threshold(v_s, v_y)
+    thresholds: Dict[int, float] = {}
+    for p in np.unique(v_tr[:, 2]):
+        sel = v_tr[:, 2] == p
+        thresholds[int(p)] = _best_threshold(v_s[sel], v_y[sel])
+
+    t_tr = np.concatenate([test_pos, test_neg])
+    t_y = np.concatenate([np.ones(len(test_pos)), -np.ones(len(test_neg))])
+    t_s = score(t_tr)
+    taus = np.array([thresholds.get(int(p), global_tau) for p in t_tr[:, 2]])
+    pred = np.where(t_s >= taus, 1.0, -1.0)
+    per_rel = {}
+    for p in np.unique(t_tr[:, 2]):
+        sel = t_tr[:, 2] == p
+        per_rel[int(p)] = float(np.mean(pred[sel] == t_y[sel]))
+    return {
+        "accuracy": float(np.mean(pred == t_y)),
+        "thresholds": thresholds,
+        "global_threshold": global_tau,
+        "per_relation": per_rel,
+    }

@@ -8,9 +8,8 @@ and a final test evaluation.
 The flags and their defaults are the JAX package's. It runs on the GPU;
 `--cpu` selects the CPU, and without a GPU and without `--cpu` it exits
 with an error. Options of the JAX CLI that the port does not have yet
-(`--trainer partitioned|outofcore`, `--n3`, `--synthetic-kind latent`, and
-the models outside the port's `MODELS`) exit with a message that names
-them.
+(`--trainer partitioned|outofcore` and the models outside the port's
+`MODELS`) exit with a message that names them.
 """
 
 from __future__ import annotations
@@ -28,6 +27,7 @@ from skge_torch.data import (
     Dataset,
     add_reciprocal_relations,
     bernoulli_probs,
+    latent_kg,
     load_dataset,
     load_tsv,
     sorted_train_keys,
@@ -42,12 +42,14 @@ from skge_torch.utils.checkpoint import save_checkpoint
 log = logging.getLogger("skge_torch.experiment")
 
 # the JAX package's models that the port does not have yet
-NOT_PORTED_MODELS = ("distmult", "complex", "rotate", "transh", "transr",
-                     "tucker", "simple", "quate", "pairre", "conve")
+NOT_PORTED_MODELS = ("rotate", "transh", "transr", "pairre", "conve")
+# the models that take `rparam`, and the factorization models that take `n3`
+RPARAM_MODELS = ("hole", "rescal", "distmult", "complex", "tucker", "simple", "quate")
+N3_MODELS = ("distmult", "complex", "tucker", "simple", "quate")
 
 
 def build_sampler(name: str, ds: Dataset, ntries: int = 100, k: int = 1024,
-                  modes: tuple = (0, 1), device="cpu"):
+                  modes: tuple = (0, 1), device="cuda"):
     """The sampler `name` for `ds`, its index arrays on `device`."""
     def on(a):
         return torch.as_tensor(a, device=device)
@@ -71,13 +73,7 @@ def build_sampler(name: str, ds: Dataset, ntries: int = 100, k: int = 1024,
 def _refuse_unported(args: argparse.Namespace) -> None:
     if args.trainer != "single":
         raise SystemExit(f"--trainer {args.trainer} is not yet ported to "
-                         "skge_torch (ROADMAP.md queue 9); use --trainer single")
-    if args.n3:
-        raise SystemExit("--n3 is not yet ported to skge_torch "
-                         "(it comes with the factorization models)")
-    if args.synthetic_kind != "random":
-        raise SystemExit(f"--synthetic-kind {args.synthetic_kind} is not yet "
-                         "ported to skge_torch (latent_kg)")
+                         "skge_torch (ROADMAP.md queue 1); use --trainer single")
 
 
 class Experiment:
@@ -95,15 +91,19 @@ class Experiment:
         elif args.fin:
             self.ds = load_dataset(args.fin)
         else:
-            self.ds = synthetic_kg(
+            kw = ({"latent_dim": args.latent_dim, "device": self.device}
+                  if args.synthetic_kind == "latent" else {})
+            gen = latent_kg if args.synthetic_kind == "latent" else synthetic_kg
+            self.ds = gen(
                 n_entities=args.synthetic_entities,
                 n_relations=args.synthetic_relations,
                 n_train=args.synthetic_train,
                 n_valid=max(50, args.synthetic_train // 20),
                 n_test=max(50, args.synthetic_train // 20),
                 seed=args.seed,
+                **kw,
             )
-            log.info("using random synthetic KG (no --fin given)")
+            log.info("using %s synthetic KG (no --fin given)", args.synthetic_kind)
         if args.reciprocal:
             if not (args.ce or args.sampled_ce):
                 raise SystemExit("--reciprocal requires --ce or --sampled-ce")
@@ -111,8 +111,16 @@ class Experiment:
             log.info("reciprocal-relation augmentation (n_relations doubled to "
                      "%d, train doubled to %d)", self.ds.n_relations, len(self.ds.train))
         kw = {}
-        if args.model in ("hole", "rescal"):
+        if args.model in RPARAM_MODELS:
             kw["rparam"] = args.rparam
+        if args.n3:
+            if args.model not in N3_MODELS:
+                raise SystemExit(
+                    f"--n3 is not supported for --model {args.model} "
+                    "(factorization models only: distmult, complex, "
+                    "tucker, simple, quate)"
+                )
+            kw["n3"] = args.n3
         if args.model == "ermlp":
             kw["nhidden"] = args.nhidden
         if args.model == "hole":
@@ -266,7 +274,9 @@ def make_parser() -> argparse.ArgumentParser:
                    help="cross-entropy label smoothing (ConvE uses 0.1)")
     p.add_argument("--rparam", type=float, default=0.0)
     p.add_argument("--n3", type=float, default=0.0,
-                   help="nuclear-3-norm coefficient (not yet ported)")
+                   help="nuclear-3-norm coefficient (Lacroix et al. 2018) on the "
+                   "touched rows; factorization models only (distmult, complex, "
+                   "tucker, simple, quate)")
     p.add_argument("--reciprocal", action="store_true",
                    help="[with --ce or --sampled-ce] reciprocal-relation "
                    "training: doubled relation ids, object-direction-only CE, "
@@ -289,9 +299,10 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic-relations", type=int, default=10)
     p.add_argument("--synthetic-train", type=int, default=5000)
     p.add_argument("--synthetic-kind", default="random", choices=["random", "latent"],
-                   help="'latent' is not yet ported")
+                   help="'latent' = learnable translational-geometry KG "
+                   "(data.latent_kg) for quality experiments")
     p.add_argument("--latent-dim", type=int, default=32,
-                   help="[--synthetic-kind latent, not yet ported]")
+                   help="[--synthetic-kind latent] latent dimension")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (default: the GPU)")
     return p

@@ -12,6 +12,8 @@ pass around. A model contributes:
   against the positives' (B, ·) rows.
 - `score_pool` / `score_all_o` / `score_all_s`: batched sweeps against a
   shared negative pool and against every entity.
+- `n3_grad_rows`: the row gradient of the nuclear 3-norm (`n3`), for the
+  factorization models.
 
 Triple role convention everywhere: columns (s, o, p).
 """
@@ -101,6 +103,18 @@ class KGEModel:
         """L2 coefficient applied per touched row (`rparam`); 0 when absent."""
         return float(getattr(self, "rparam", 0.0))
 
+    @property
+    def regularization_n3(self) -> float:
+        """Nuclear-3-norm coefficient (`n3`, Lacroix et al. 2018); 0 when
+        absent. Applied where `rparam` is, through `n3_grad_rows`."""
+        return float(getattr(self, "n3", 0.0))
+
+    def n3_grad_rows(self, pname: str, rows: torch.Tensor) -> torch.Tensor:
+        """d(sum_j w(x)_j^3)/dx divided by 3, per row. The default factor
+        weight is |x| per entry, so the gradient is x * |x|; ComplEx and
+        QuatE weigh each dimension by its complex or quaternion modulus."""
+        return rows * torch.abs(rows)
+
     def reg_grad_rows(self, pname: str, rows: torch.Tensor) -> torch.Tensor:
         """Row-L2 (`rparam`) gradient contribution for `pname` rows:
         identity by default."""
@@ -170,3 +184,7 @@ class KGEModel:
         return self.score_from_rows(
             self.gather_rows(params, s, o, p), self.dense_params(params)
         )
+
+    def score_triples(self, params: Params, triples: torch.Tensor) -> torch.Tensor:
+        """triples: (B, 3) int64 tensor in (s, o, p) column order."""
+        return self.score(params, triples[:, 0], triples[:, 1], triples[:, 2])

@@ -12,8 +12,8 @@ Semantics are those of `skge_tpu.training`:
 - pointwise logistic loss `sum(logaddexp(0, -y*f))`, negatives appended
   to the batch with y = -1;
 - gradients are AVERAGED over duplicate row indices;
-- `rparam * row` L2 regularization on the touched rows of
-  `model.reg_row_params`;
+- `rparam * row` L2 and `n3` nuclear-3-norm regularization on the
+  touched rows of `model.reg_row_params`;
 - dense params (ER-MLP's W and C) take the batch's mean gradient.
 
 Three families of margin and logistic gradient functions, chosen by the
@@ -707,6 +707,21 @@ def pointwise_grads_shared_bilinear(
     return loss, occ, {}
 
 
+def regularized(model: KGEModel, pname: str, grads: torch.Tensor,
+                rows: torch.Tensor) -> torch.Tensor:
+    """`grads` of the param rows `rows` plus the row regularizers of
+    `model.reg_row_params`: `rparam * row` (L2) and `3 * n3 * n3_grad_rows`
+    (the nuclear 3-norm), each only where its coefficient is nonzero."""
+    if pname not in model.reg_row_params:
+        return grads
+    reg, reg3 = model.regularization, model.regularization_n3
+    if reg != 0.0:
+        grads = grads + reg * model.reg_grad_rows(pname, rows)
+    if reg3 != 0.0:
+        grads = grads + (3.0 * reg3) * model.n3_grad_rows(pname, rows)
+    return grads
+
+
 # the JAX package's dense aggregate modes; here all scatter through the
 # CUDA kernels
 _DENSE_MODES = ("dense", "dense_pallas", "dense_sorted")
@@ -732,8 +747,11 @@ def apply_gradients(
     (TransE's E and R) share ONE scatter into a stacked table, split after,
     so a TransE step launches `segment_sum` once. Under 'unique' a
     `FactoredOcc`'s outer products are materialized batch-locally, as in
-    the JAX package. `rparam` adds `rparam * row` to the averaged gradient
-    of each touched row of `model.reg_row_params`. `combine="sum"`
+    the JAX package. `rparam` adds `rparam * row`, and `n3` adds
+    `3 * n3 * model.n3_grad_rows(row)`, to the averaged gradient of each
+    touched row of `model.reg_row_params` (per table, after a grouped
+    scatter is split; under the dense modes over the whole table, which
+    the optimizer's mask then limits to the touched rows). `combine="sum"`
     multiplies each averaged row back by its count, so duplicate
     occurrences add up (sampled cross entropy); on the dense modes that is
     the kernel's atomic fp32 sum divided and multiplied again, not a plain
@@ -745,7 +763,6 @@ def apply_gradients(
         raise ValueError(f"unknown combine {combine!r}")
     params = dict(params)
     opt_state = dict(opt_state)
-    reg = model.regularization
 
     def summed(grads, count):
         if combine == "mean":
@@ -753,11 +770,8 @@ def apply_gradients(
         return grads * count.reshape((-1,) + (1,) * (grads.dim() - 1))
 
     def apply_dense_grads(pname, dg: DenseGrads):
-        dg = dg._replace(grads=summed(dg.grads, dg.count))
-        if reg != 0.0 and pname in model.reg_row_params:
-            dg = dg._replace(
-                grads=dg.grads + reg * model.reg_grad_rows(pname, params[pname])
-            )
+        dg = dg._replace(grads=regularized(
+            model, pname, summed(dg.grads, dg.count), params[pname]))
         params[pname], opt_state[pname] = opt.apply_dense_masked(
             params[pname], opt_state[pname], dg,
             model.post_constraints.get(pname), step=step,
@@ -777,12 +791,8 @@ def apply_gradients(
     if aggregate == "unique":
         for pname, (idx, g, m) in occ.items():
             ug = segment_mean_unique(idx, g, m, model.num_rows(pname), premasked)
-            ug = ug._replace(grads=summed(ug.grads, ug.count))
-            if reg != 0.0 and pname in model.reg_row_params:
-                ug = ug._replace(
-                    grads=ug.grads
-                    + reg * model.reg_grad_rows(pname, params[pname][ug.uidx])
-                )
+            ug = ug._replace(grads=regularized(
+                model, pname, summed(ug.grads, ug.count), params[pname][ug.uidx]))
             params[pname], opt_state[pname] = opt.apply_unique(
                 params[pname], opt_state[pname], ug,
                 model.post_constraints.get(pname), step=step,
@@ -996,20 +1006,18 @@ def make_ce_step(
 ):
     """One full cross-entropy step (`ce_grads_all`), no sampler. Every table
     takes `apply_full`: every entity row is in the partition function, and a
-    zero gradient row is an exact no-op of AdaGrad and SGD. `rparam` and the
-    post-constraint (TransE's normless1) apply to the whole table.
+    zero gradient row is an exact no-op of AdaGrad and SGD. `rparam`, `n3`
+    and the post-constraint (TransE's normless1) apply to the whole table.
     `nviolations` is 0."""
 
     def step(state: TrainState, batch: torch.Tensor, mask: torch.Tensor):
         loss, grads = ce_grads_all(model, state.params, batch, mask, directions,
                                    label_smoothing)
-        reg = model.regularization
         params, opt_state = dict(state.params), dict(state.opt_state)
         for pname, g in grads.items():
-            if reg != 0.0 and pname in model.reg_row_params:
-                g = g + reg * model.reg_grad_rows(pname, params[pname])
             params[pname], opt_state[pname] = opt.apply_full(
-                params[pname], opt_state[pname], g, step=state.step
+                params[pname], opt_state[pname],
+                regularized(model, pname, g, params[pname]), step=state.step
             )
             post = model.post_constraints.get(pname)
             if post is not None:

@@ -1,9 +1,11 @@
 """The port's experiment CLI (skge_torch/experiment.py) against the JAX
 package's: the shared flags keep their defaults; the four loss families
-run end to end on the CPU on a tiny synthetic KG and give a finite MRR;
-the `--fout` checkpoint loads in the JAX package; the options not yet
-ported exit with a message that names them; without `--cpu` and a GPU the
-CLI exits instead of running on the CPU.
+run end to end on the CPU on a tiny synthetic KG and give a finite MRR,
+and so do the factorization models with `--n3` and `--synthetic-kind
+latent`; the `--fout` checkpoint loads in the JAX package; `--n3` outside
+the factorization models and the options not yet ported exit with a
+message that names them; without `--cpu` and a GPU the CLI exits instead
+of running on the CPU.
 """
 
 import ast
@@ -56,8 +58,8 @@ def test_main_runs_each_loss(flags, tmp_path, capsys):
 @pytest.mark.parametrize("flags, message", [
     (["--trainer", "partitioned"], "--trainer partitioned is not yet ported"),
     (["--trainer", "outofcore"], "--trainer outofcore is not yet ported"),
-    (["--n3", "0.1"], "--n3 is not yet ported"),
-    (["--synthetic-kind", "latent"], "--synthetic-kind latent is not yet ported"),
+    (["--n3", "0.1"], "--n3 is not supported for --model hole"),
+    (["--model", "transe", "--n3", "0.1"], "--n3 is not supported for --model transe"),
 ])
 def test_unported_options_exit_naming_them(flags, message):
     with pytest.raises(SystemExit, match=message):
@@ -68,6 +70,51 @@ def test_unported_model_exits_naming_it(capsys):
     with pytest.raises(SystemExit):
         experiment.main(TINY + ["--model", "conve"])
     assert "--model conve is not yet ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("model", ["rotate", "transh", "transr", "pairre", "conve"])
+def test_models_outside_the_port_are_refused(model, capsys):
+    assert model in experiment.NOT_PORTED_MODELS and model in jexperiment.MODELS
+    with pytest.raises(SystemExit):
+        experiment.main(TINY + ["--model", model])
+    err = capsys.readouterr().err
+    assert f"--model {model} is not yet ported" in err
+    assert "complex, distmult, ermlp, hole, quate, rescal, simple, transe, tucker" in err
+
+
+LATENT = ["--cpu", "--synthetic-kind", "latent", "--latent-dim", "8",
+          "--synthetic-entities", "120", "--synthetic-relations", "4",
+          "--synthetic-train", "160", "--ncomp", "6", "--nb", "4", "--me", "2",
+          "--test-all", "1", "--eval-batch", "64"]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--model", "complex", "--ce", "--reciprocal", "--optimizer", "adam", "--lr", "0.01",
+     "--label-smoothing", "0.1", "--n3", "1e-3"],
+    ["--model", "tucker", "--sampler", "shared", "--k", "16", "--aggregate",
+     "dense_pallas", "--n3", "1e-3", "--rparam", "1e-3"],
+    ["--model", "quate", "--sampled-ce", "--sampler", "shared", "--k", "16",
+     "--optimizer", "adam", "--lr", "0.01", "--n3", "1e-3"],
+], ids=["complex-ce-n3", "tucker-margin", "quate-sampled_ce"])
+def test_factorization_models_on_a_latent_kg(flags, tmp_path, capsys):
+    """The latent KG is JAX's for the same flags; the model takes `n3` and
+    `rparam`; the checkpoint loads in the JAX package."""
+    from skge_tpu.data import latent_kg as jlatent_kg
+
+    fout = str(tmp_path / "best.npz")
+    args = experiment.make_parser().parse_args(LATENT + flags + ["--fout", fout])
+    exp = experiment.Experiment(args)
+    assert exp.model.n3 == 1e-3 and exp.model.rparam == args.rparam
+    want = jlatent_kg(120, 4, 160, n_valid=50, n_test=50, latent_dim=8, seed=0)
+    for got, w in ((exp.ds.valid, want.valid), (exp.ds.test, want.test)):
+        assert (got == w).all()
+    assert experiment.main(LATENT + flags + ["--fout", fout]) == 0
+    result = ast.literal_eval(capsys.readouterr().out.strip().splitlines()[-1])
+    assert result["epochs"] == 2
+    assert math.isfinite(result["mrr"]) and 0.0 < result["mrr"] <= 1.0
+    jstate, meta = jload_checkpoint(fout)
+    assert meta["model"] == flags[1]
+    assert set(jstate.params) == set(exp.model.init_params(torch.Generator()))
 
 
 def test_no_gpu_without_cpu_flag_exits(monkeypatch):
