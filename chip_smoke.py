@@ -35,6 +35,7 @@ Phases, each fatal:
    step's 91,808 occurrences, the self-adversarial step's 22,688, and the
    shared pool's 15,520 at the factorization family's widths (D = 304 for
    ComplEx's and SimplE's 2 x 150-wide rows, D = 604 for QuatE's 4 x 150),
+   and full-rank TransR's M gradient (T = 4,832, R = 1,345, D = 22,500),
    and timed beside `index_add_` alone; its scalar path also timed at D = 151
    and at RESCAL's W counts (D = 1), beside `index_add_`;
    `segment_outer_sum` equal bit for bit to its in-order plain version and to itself in a second call, also at ranks 1, 3 and 4,
@@ -104,7 +105,26 @@ Phases, each fatal:
    8d learning: DistMult, ComplEx (n3) and TuckER, ncomp 64, under the CE
       recipe on `latent_kg(2000, 12, 16000, kind="bilinear", seed=5)`:
       each filtered MRR at least 5x its MRR at init, and ComplEx's triple
-      classification accuracy above 0.6.
+      classification accuracy above 0.6;
+9. the rest of the zoo at `bench.py`'s ALL_ROWS widths (ncomp 150, ConvE
+   128) on FB15k's shape:
+   9a RotatE, TransH, PairRE, TransR factored and full rank, and ConvE
+      (relations doubled, objects only) on 8a's shared-pool margin step, 10
+      warm steps, each with its exact K1 counts (1-3 a step; full-rank
+      TransR's M gradient on K1's 16-byte path at D = 22,500 and its
+      counts at D = 1), busy time, idle share, peak memory, top operators,
+      `assert_finite_state`, and one step against the CPU from warm
+      accumulators (full-rank TransR on 512 positives); ConvE's again with
+      cuDNN's TF32 on for the process, its convolution against fp64;
+   9b RECIPES.md:14's CE recipe for ConvE at ncomp 128 through
+      `Experiment`, as 8b;
+   9c learning on the card, the JAX package's gates at their sizes and
+      thresholds: the margin gates of RotatE, TransH, PairRE and both
+      TransRs (violations below 0.7x epoch 1's, filtered MRR above 5 / n_e)
+      and ConvE's CE gate (loss below 0.8x epoch 1's, the same MRR gate);
+   9d filtered ranking of the 1,000 held-out triples with each of 9a's
+      trained states, seconds per 1,000, and 64 queries' `score_all_o` and
+      `score_all_s` on the card within 1e-4 of the CPU's largest |score|.
 
 Prints one JSON line with the kernel table, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.
@@ -119,6 +139,7 @@ at this tree's shapes: parent against change on one card.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -137,8 +158,8 @@ from skge_torch import (ERMLP, MODELS, RESCAL, AdaGrad, BernoulliSampler,
                         CorruptedSampler, FilteredRankingEval, HolE,
                         LCWASampler, RandomModeSampler, ReciprocalEvalWrapper,
                         SharedNegativeSampler, TrainConfig, Trainer, TrainState,
-                        TransE, init_state, load_checkpoint, make_epoch_fn,
-                        make_pairwise_step, make_pointwise_step,
+                        TransE, init_state, load_checkpoint, make_ce_step,
+                        make_epoch_fn, make_pairwise_step, make_pointwise_step,
                         triple_classification)
 from skge_torch.data import (add_reciprocal_relations, bernoulli_probs,
                              latent_assign, latent_kg, latent_queries,
@@ -146,6 +167,7 @@ from skge_torch.data import (add_reciprocal_relations, bernoulli_probs,
                              synthetic_kg, type_index_arrays, unigram_logits)
 from skge_torch.evaluation import classification_negatives
 from skge_torch.experiment import Experiment, make_parser
+from skge_torch.models import conve
 from skge_torch.models.base import ACTIVATIONS
 from skge_torch.ops import _build, cuda_outer, cuda_segment
 from skge_torch.training import regularized
@@ -234,6 +256,44 @@ LATENT_GATE = dict(n_entities=2_000, n_relations=12, n_train=16_000, n_valid=400
                    n_test=400, latent_dim=8, seed=5, kind="bilinear")
 LATENT_CHUNK = 16384  # latent_kg's queries per sweep
 GATE_NCOMP, GATE_EPOCHS, GATE_NB = 64, 20, 20  # 8d's CE runs
+# phase 9: the rest of the zoo at `bench.py`'s ALL_ROWS widths (--ncomp 150,
+# ConvE's 128) on phase 8a's shared-pool margin step, 10 warm steps
+ZOO = SimpleNamespace(**{**vars(TRANSE), "steps": 10, "warm": True, "profile": True})
+# tag: (model, ncomp, constructor keywords, K1 a step, of them on the 16-byte
+# path), from the grouping by feature shape (E, R and the rest of one width
+# share a scatter), each group padded with its count channel to a multiple
+# of 4 columns; full-rank TransR's M gradient (22,500 wide) scatters without
+# the channel and its counts separately (D = 1, the scalar path)
+ZOO_MODELS = {
+    "rotate": ("rotate", 150, {}, 2, 2),                       # E 304, R 152
+    "transh": ("transh", 150, {}, 1, 1),                       # E, R, W 152
+    "pairre": ("pairre", 150, {}, 2, 2),                       # E 152, R 304
+    "transr factored": ("transr", 150, {"factored": True}, 1, 1),  # E, R, U, V 152
+    "transr": ("transr", 150, {}, 3, 2),                       # E, R 152; M 22,500 + 1
+    "conve": ("conve", 128, {}, 2, 2),                         # E 132, R 132
+}
+ZOO_CPU_POSITIVES = {"transr": 512}  # the CPU step of full-rank TransR: a cut batch
+# ConvE's step against the CPU starts with its accumulators held at >= 1e-6.
+# At the initial params some of its subject gradients lie below AdaGrad's
+# 1e-6 floor, at rows the trained run never touched (p2 = 0), where an update
+# is lr * g / 1e-6: fp32 rounding of g then moves params by more than
+# STEP_TOL (7.4e-05 between fp32 and fp64 on the CPU alone). With p2 >= 1e-6
+# an update moves at most lr / 1e-3 = 100 times a gradient's difference.
+CONVE_P2_FLOOR = 1e-6
+# RECIPES.md:14, the CE recipe, for ConvE at `bench.py`'s --ncomp 128
+RECIPE_CONVE = ["--model", "conve", "--ce", "--reciprocal", "--optimizer", "adam",
+                "--lr", "1e-3", "--label-smoothing", "0.1", "--ncomp", "128"]
+# the JAX package's learning gates, at their sizes: the margin gates of
+# tests/test_models_translational_plus.py:188-215, test_models_extra.py:149-175,
+# test_models_factorized_plus.py:212-238 and test_transr_sweep.py:182-200
+# (factored TransR, seed 2), and ConvE's CE gate of test_conve.py:226-252
+MARGIN_GATE = dict(n_entities=400, n_relations=6, n_train=2000, n_valid=0, n_test=60,
+                   latent_dim=8)
+MARGIN_GATES = {"rotate": ({}, 1), "transh": ({}, 1), "pairre": ({}, 1),
+                "transr": ({}, 1), "transr factored": ({"factored": True}, 2)}  # (kw, seed)
+CONVE_GATE = dict(n_entities=300, n_relations=6, n_train=1200, n_valid=0, n_test=50,
+                  latent_dim=6, seed=1)
+RANK_QUERIES = 64  # 9d: score_all_o and score_all_s held to the CPU
 
 
 def check(ok: bool, what: str) -> None:
@@ -380,7 +440,7 @@ def check_segment_sum(name, idx, grads, nrows, vector) -> float:
 
 
 # the 16-byte path's timed shapes, each beside the plain version
-VECTOR_TIMED = ("slice", "iid", "selfadv", "ComplEx, SimplE", "QuatE")
+VECTOR_TIMED = ("slice", "iid", "selfadv", "ComplEx, SimplE", "QuatE", "TransR's M")
 
 
 def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
@@ -390,7 +450,8 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
     TransE step's (s, o and 16 corruptions into E, and R, in one scatter),
     the self-adversarial step's (k = 8,192) and the shared pool's at
     ComplEx's and SimplE's 2 x 150-wide rows (D = 304) and QuatE's 4 x 150
-    (D = 604), then the scalar path at
+    (D = 604), full-rank TransR's M gradient (T = one batch, R = relations,
+    D = 150 x 150 = 22,500, no count channel), then the scalar path at
     D = 151 and at RESCAL's W counts (D = 1), each beside `index_add_` alone
     on the same (in-range) ids."""
     e, r = DATA.n_entities, DATA.n_relations
@@ -410,6 +471,7 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
         ("selfadv", t_selfadv, rows, width, 0, rows, 0, True),
         ("ComplEx, SimplE", t_slice, rows, complex_w, 0, rows, 0, True),
         ("QuatE", t_slice, rows, quate_w, 0, rows, 0, True),
+        ("TransR's M", _batch_size(TRANSE), r, ZOO_MODELS["transr"][1] ** 2, 0, r, 0, True),
         ("ids<0 and >=R dropped", t_slice, rows, width, -50, rows + 50, 0, True),
         ("D=151 scalar path", t_slice, rows, width - 1, 0, rows, 0, False),
         ("misaligned view", t_slice, rows, width, 0, rows, 1, False),
@@ -538,14 +600,22 @@ def make_model(cfg, ds):
         return HolE(ds.n_entities, ds.n_relations, ncomp=cfg.ncomp, rparam=cfg.rparam)
     if cfg.model == "ermlp":
         return ERMLP(ds.n_entities, ds.n_relations, ncomp=cfg.ncomp, nhidden=cfg.nhidden)
+    if hasattr(cfg, "model_kw"):  # phase 9; ConvE's relations doubled as bench.py's
+        n_r = 2 * ds.n_relations if cfg.model == "conve" else ds.n_relations
+        return MODELS[cfg.model](ds.n_entities, n_r, ncomp=cfg.ncomp, **cfg.model_kw)
     return MODELS[cfg.model](ds.n_entities, ds.n_relations, ncomp=cfg.ncomp, n3=cfg.n3)
+
+
+def modes_of(cfg) -> tuple:
+    """The corruption modes of the path: objects only for ConvE."""
+    return (1,) if cfg.model == "conve" else (0, 1)
 
 
 def make_sampler(cfg, ds, dev):
     """The path's sampler, its index arrays on `dev`."""
     n_e, n_r = ds.n_entities, ds.n_relations
     if cfg.sampler == "shared":
-        return SharedNegativeSampler(n_e, k=cfg.k)
+        return SharedNegativeSampler(n_e, k=cfg.k, modes=modes_of(cfg))
     if cfg.sampler == "random-mode":
         return RandomModeSampler(n_e, modes=(0, 1) * cfg.negatives)
     if cfg.sampler == "bernoulli":
@@ -562,7 +632,7 @@ def pairs_per_positive(cfg) -> int:
     """Margin-ranked pairs (or appended negatives) per positive, as
     `bench.py` counts them."""
     if cfg.sampler == "shared":
-        return 2 * cfg.k
+        return len(modes_of(cfg)) * cfg.k
     if cfg.sampler == "random-mode":
         return 2 * cfg.negatives
     return 1 if cfg.sampler == "bernoulli" else 2
@@ -650,8 +720,8 @@ def train(cfg, ds, dev, tag="4"):
         state, m = run(state, xs)
         _sync(dev)
         dt = time.perf_counter() - t0
-        check(bool(torch.isfinite(m.loss).all()), f"{cfg.model} finite losses, run {e}")
-        log(f"[{tag}] {cfg.model} {cfg.loss} {cfg.sampler} run {e} ({steps} steps): "
+        check(bool(torch.isfinite(m.loss).all()), f"{_label(cfg)} finite losses, run {e}")
+        log(f"[{tag}] {_label(cfg)} {cfg.loss} {cfg.sampler} run {e} ({steps} steps): "
             f"violations {int(m.nviolations.sum())}  loss {float(m.loss.sum()):.6e}  "
             f"{dt:.3f} s  step {1e3 * dt / steps:.3f} ms  "
             f"{scored / dt:.6e} scored triples/s")
@@ -671,6 +741,10 @@ def train(cfg, ds, dev, tag="4"):
     if cfg.profile and dev.type == "cuda":
         busy = profile(step, state, batches, mask, 1e3 * dt / steps, tag)
     return model, opt, state0, state, launches, busy
+
+
+def _label(cfg) -> str:
+    return getattr(cfg, "label", cfg.model)
 
 
 def expected_launches(cfg) -> dict:
@@ -728,7 +802,7 @@ def near_margin(cfg, model, params, batch, sampler) -> int:
     gp = af(model.score_from_rows(r, dense))
     if isinstance(sampler, FixedPool):
         pool = params["E"][sampler.ids.to(batch.device)]
-        gns = [af(model.score_pool(r, pool, dense, mode)) for mode in (0, 1)]
+        gns = [af(model.score_pool(r, pool, dense, mode)) for mode in sampler.modes]
         gp = gp[:, None]
     else:
         gns = [af(model.score_from_rows({**r, "es" if mode == 0 else "eo":
@@ -737,19 +811,31 @@ def near_margin(cfg, model, params, batch, sampler) -> int:
     return sum(int(((gn + cfg.margin - gp).abs() < 1e-4).sum()) for gn in gns)
 
 
-def step_against_cpu(cfg, ds, model, opt, start, dev, tag="5", unique_too=False):
+def step_against_cpu(cfg, ds, model, opt, start, dev, tag="5", unique_too=False,
+                     positives=None, p2_floor=None):
     """Phase 5: one step from the same state, batch and negatives, on the
     card (kernels) and on the CPU (plain versions). At the initial params
     every pair violates by a wide margin, so the violation counts must
     agree. `unique_too`: also the card's `unique` aggregation (no kernel)
-    against its `dense_pallas`."""
+    against its `dense_pallas`. `positives`: the step takes the batch's
+    first `positives` rows only, on both. `p2_floor`: the start's AdaGrad
+    accumulators held at or above it (see `CONVE_P2_FLOOR`)."""
+    if p2_floor is not None:
+        log(f"[{tag}] {_label(cfg)}: the start's AdaGrad accumulators held at >= {p2_floor:g}")
+        start = start._replace(opt_state={
+            k: {"p2": torch.clamp(v["p2"], min=p2_floor)} for k, v in start.opt_state.items()})
     gen = torch.Generator().manual_seed(cfg.seed + 2)
     b = _batch_size(cfg, ds.train.shape[0])
     rows = torch.randperm(ds.train.shape[0], generator=gen)[:b]
+    if positives is not None:
+        log(f"[{tag}] {_label(cfg)}: the step against the CPU takes the first {positives} "
+            f"of the batch's {b} positives (CPU time)")
+        rows, b = rows[:positives], positives
     batch = torch.as_tensor(ds.train, dtype=torch.int64)[rows]
     mask = torch.ones(b)
     if cfg.sampler == "shared":
-        sampler = FixedPool(torch.randint(0, ds.n_entities, (cfg.k,), generator=gen))
+        sampler = FixedPool(torch.randint(0, ds.n_entities, (cfg.k,), generator=gen),
+                            modes=modes_of(cfg))
     else:
         cpu = torch.device("cpu")
         sampler = FixedCorruptions(
@@ -764,7 +850,7 @@ def step_against_cpu(cfg, ds, model, opt, start, dev, tag="5", unique_too=False)
     nv_dev, nv_cpu = int(dev_m.nviolations), int(cpu_m.nviolations)
     near = near_margin(cfg, model, {k: v.to(dev) for k, v in start.params.items()},
                        batch.to(dev), sampler)
-    log(f"[{tag}] {cfg.model}: violations card {nv_dev} cpu {nv_cpu}; pairs "
+    log(f"[{tag}] {_label(cfg)}: violations card {nv_dev} cpu {nv_cpu}; pairs "
         f"within 1e-4 of the margin {near}; step {t1 - t0:.3f} s card, "
         f"{t2 - t1:.3f} s cpu")
     others = [("cpu", cpu_state, nv_cpu)]
@@ -784,8 +870,8 @@ def step_against_cpu(cfg, ds, model, opt, start, dev, tag="5", unique_too=False)
                 f"{dp2:.3e} (max p2 {p2_max:.3e}; max update of {name} {moved:.3e})")
             # p2 sums squares and grows with training: held relative to its size
             check(diff <= STEP_TOL and dp2 <= STEP_TOL * max(1.0, p2_max),
-                  f"one {cfg.model} step card vs {what}: {name} within {STEP_TOL}")
-        check(nv_dev == nv, f"one {cfg.model} step card vs {what}: same violation count")
+                  f"one {_label(cfg)} step card vs {what}: {name} within {STEP_TOL}")
+        check(nv_dev == nv, f"one {_label(cfg)} step card vs {what}: same violation count")
 
 
 def evaluate(ds, model, state, dev, tag="6") -> None:
@@ -1101,24 +1187,32 @@ def factorization_margin(graph, dev, launches) -> None:
                          dev, "8a")
 
 
-def complex_recipe(dev, launches) -> None:
-    """Phase 8b: RECIPES.md:14 for ComplEx through `Experiment`, 10 steps of
-    its 9,663-triple batch (no scatter: full CE updates every table), the
-    warm step, busy time and peak memory, `assert_finite_state`, then one
-    step on the card against the CPU with N3 on, every Adam slot too."""
+def ce_recipe(dev, launches, tag, what, flags, check_model) -> None:
+    """Phases 8b and 9b: a full-CE recipe (`flags`) through `Experiment`,
+    `check_model(exp)` first, then 10 steps of its 9,663-triple batch (no
+    scatter: full CE updates every table), the warm step, busy time and
+    peak memory, `assert_finite_state`, then one step on the card against
+    the CPU, every Adam slot too."""
     cpu = ["--cpu"] if dev.type == "cpu" else []
-    exp = Experiment(make_parser().parse_args(cpu + FB15K_ARGS + RECIPE_14 + [
+    exp = Experiment(make_parser().parse_args(cpu + FB15K_ARGS + flags + [
         "--me", "1", "--mode", "none"]))
-    check(exp.model.n3 == 1e-3 and exp.model.ncomp == 150, "8b: ComplEx ncomp 150, n3")
+    check_model(exp)
     tr = exp.trainer
     b = -(-len(exp.ds.train) // tr.config.nbatches)
     tr.config = dataclasses.replace(tr.config, nbatches=10)
     xs = exp.ds.train[: 10 * b]
-    drive(dev, "8b", "ComplEx full CE, reciprocal, Adam, N3 (RECIPES.md:14)", tr, xs,
-          lambda: tr.fit(xs), _launches(0, 0, 0), exp.ds.n_entities * len(xs), launches)
+    drive(dev, tag, what, tr, xs, lambda: tr.fit(xs), _launches(0, 0, 0),
+          exp.ds.n_entities * len(xs), launches)
     assert_finite_state(tr.state)
-    warm_step(tr, xs, "8b", exp.ds.n_entities * len(xs), steps=5)
-    loss_step_against_cpu("8b", tr, xs)
+    warm_step(tr, xs, tag, exp.ds.n_entities * len(xs), steps=5)
+    loss_step_against_cpu(tag, tr, xs)
+
+
+def complex_recipe(dev, launches) -> None:
+    """Phase 8b: RECIPES.md:14 for ComplEx, N3 on."""
+    ce_recipe(dev, launches, "8b", "ComplEx full CE, reciprocal, Adam, N3 (RECIPES.md:14)",
+              RECIPE_14, lambda exp: check(exp.model.n3 == 1e-3 and exp.model.ncomp == 150,
+                                           "8b: ComplEx ncomp 150, n3"))
 
 
 def latent_sweep(dev) -> None:
@@ -1212,6 +1306,196 @@ def learning_gate(dev) -> None:
         f"{n} {m:.4f}" for n, m in sorted(mrrs.items(), key=lambda x: -x[1])))
 
 
+def zoo_configs() -> dict:
+    """Phase 9a's paths, {tag: config}, from `ZOO` and `ZOO_MODELS`."""
+    return {tag: SimpleNamespace(**{**vars(ZOO), "model": name, "label": tag,
+                                   "ncomp": ncomp, "model_kw": kw, "k1": k1,
+                                   "vector": vector})
+            for tag, (name, ncomp, kw, k1, vector) in ZOO_MODELS.items()}
+
+
+@contextlib.contextmanager
+def tf32_conv_on():
+    """cuDNN's TF32 switched on for the whole process, as a caller may."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+def conv_guard_errors(model, state, ds, dev) -> None:
+    """With cuDNN's TF32 on for the process: ConvE's guarded convolution
+    and a plain `F.conv2d` on the same card inputs (4,096 positives' stacked
+    images), forward and both backward products against a random output
+    gradient, each against the CPU in fp64 (relative to the largest
+    |value|)."""
+    prm = state.params
+    d, (h, w) = model.ncomp, model.grid
+    tri = torch.as_tensor(ds.train[:4096], dtype=torch.int64, device=dev)
+    img = torch.cat([prm["E"][tri[:, 0], :d].reshape(-1, 1, h, w),
+                     prm["R"][tri[:, 2]].reshape(-1, 1, h, w)], dim=2)
+    filt = prm["F"]
+    gout = torch.randn(img.shape[0], filt.shape[0], *model.conv_out, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(3))
+
+    def run(conv, x, f, g):
+        x, f = x.detach().requires_grad_(), f.detach().requires_grad_()
+        out = conv(x, f)
+        return (out.detach(), *torch.autograd.grad(out, [x, f], g))
+
+    want = run(torch.nn.functional.conv2d, img.double().cpu(), filt.double().cpu(),
+               gout.double().cpu())
+    with tf32_conv_on():
+        got = {"the model's": run(conve._Conv2dFP32.apply, img, filt, gout),
+               "a plain F.conv2d's": run(torch.nn.functional.conv2d, img, filt, gout)}
+    errs = {what: [float((x.double().cpu() - y).abs().max() / y.abs().max())
+                   for x, y in zip(outs, want)] for what, outs in got.items()}
+    log("[9a] conve, cuDNN's TF32 on for the process, max|err| / max|value| against fp64 "
+        "(output, input gradient, filter gradient): " + "; ".join(
+            f"{what} {', '.join(f'{e:.3e}' for e in es)}" for what, es in errs.items()))
+    # fp32 sums stay well under 1e-4 of the largest value; TF32's 10-bit
+    # mantissa errs ~1e-3
+    check(max(errs["the model's"]) <= 1e-4,
+          "9a: ConvE's convolution stays fp32 under a global TF32 flag")
+
+
+def zoo_margin(graph, dev, launches) -> dict:
+    """Phase 9a: each model of the zoo on the shared-pool margin step
+    (`ZOO`), 10 warm steps with the counts set to 0 just before and held
+    to `ZOO_MODELS`' K1 counts after, busy time, idle share, peak memory,
+    top operators, `assert_finite_state`, then one step on the card
+    against the CPU from warm accumulators (full-rank TransR on a cut
+    batch; ConvE's held at `CONVE_P2_FLOOR`); ConvE's again with cuDNN's
+    TF32 on for the process. Returns
+    {tag: (config, model, trained state)}."""
+    trained = {}
+    for tag, cfg in zoo_configs().items():
+        model, opt, state0, state, counts, _ = train(cfg, graph, dev, "9a")
+        want = _launches(cfg.k1 * cfg.steps, 0, cfg.vector * cfg.steps)
+        check(dev.type != "cuda" or counts == want,
+              f"9a {tag}: launches {counts}, want {want}")
+        for k in launches:
+            launches[k] += counts[k]
+        assert_finite_state(state)
+        start = state0._replace(opt_state=state.opt_state)
+        kw = {"positives": ZOO_CPU_POSITIVES.get(tag),
+              "p2_floor": CONVE_P2_FLOOR if cfg.model == "conve" else None}
+        step_against_cpu(cfg, graph, model, opt, start, dev, "9a", **kw)
+        if cfg.model == "conve":
+            log("[9a] conve: the step against the CPU again, cuDNN's TF32 on for the process")
+            with tf32_conv_on():
+                step_against_cpu(cfg, graph, model, opt, start, dev, "9a", **kw)
+            if dev.type == "cuda":
+                conv_guard_errors(model, state, graph, dev)
+        trained[tag] = (cfg, model, state)
+    return trained
+
+
+def conve_recipe(dev, launches) -> None:
+    """Phase 9b: RECIPES.md:14's CE recipe for ConvE at --ncomp 128: on
+    reciprocal relations without asking, objects only."""
+    def check_model(exp):
+        check(exp.model.name == "conve" and exp.model.ncomp == 128
+              and exp.model.n_relations == exp.ds.n_relations
+              and exp.trainer.config.ce_directions == ("o",),
+              "9b: ConvE ncomp 128 on reciprocal relations, objects only")
+
+    ce_recipe(dev, launches, "9b", "ConvE full CE, reciprocal, Adam, label smoothing 0.1",
+              RECIPE_CONVE, check_model)
+
+
+def zoo_gates(dev, launches) -> None:
+    """Phase 9c: the JAX package's learning gates on the card, at their
+    sizes and thresholds: the margin gates (ncomp 24, shared pool of 64,
+    margin 0.5, AdaGrad 0.3, 30 epochs of 10 batches, `dense_pallas`):
+    violations at the last epoch below 0.7x the first's and filtered MRR
+    above 5 / n_e; ConvE's CE gate (reciprocal, ncomp 24, 8 filters,
+    AdaGrad 0.3, label smoothing 0.1, 25 epochs of 8 batches): mean loss at
+    the last epoch below 0.8x the first's, MRR above 5 / n_e."""
+    def run(tag, ds, model, opt, step, nb, epochs, metric, scatters):
+        epoch = make_epoch_fn(step, len(ds.train), nb)
+        xs = torch.as_tensor(ds.train, dtype=torch.int64, device=dev)
+        state = init_state(model, opt, torch.Generator(device=dev).manual_seed(0))
+        reset_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        seq = []
+        for _ in range(epochs):
+            state, m = epoch(state, xs)
+            seq.append(metric(m))
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        for k in launches:
+            launches[k] += counts[k]
+        assert_finite_state(state)
+        mrr = FilteredRankingEval(model, ds.test, ds.all_triples(), batch_size=64)(
+            state.params).mrr
+        log(f"[9c] {tag}: {seq[0]:.6g} at epoch 1, {seq[-1]:.6g} at epoch {epochs} "
+            f"({seq[-1] / seq[0]:.3f}x), filtered MRR {mrr:.4f} (gate {5 / ds.n_entities:.4f}); "
+            f"{dt:.2f} s, launches {counts}")
+        check(dev.type != "cuda" or (counts["segment_sum"] > 0) == scatters,
+              f"9c {tag}: the scatters went through K1")
+        check(mrr > 5.0 / ds.n_entities, f"9c {tag}: filtered MRR above 5 / n_e")
+        return seq
+
+    for tag, (kw, seed) in MARGIN_GATES.items():
+        ds = latent_kg(**{**MARGIN_GATE, "seed": seed}, device=dev)
+        model = MODELS[tag.split()[0]](ds.n_entities, ds.n_relations, 24, **kw)
+        opt = AdaGrad(lr=0.3)
+        step = make_pairwise_step(model, opt, SharedNegativeSampler(ds.n_entities, k=64),
+                                  margin=0.5, aggregate="dense_pallas")
+        viol = run(tag, ds, model, opt, step, 10, 30,
+                   lambda m: float(m.nviolations.sum()), scatters=True)
+        check(viol[-1] < 0.7 * viol[0], f"9c {tag}: violations fell below 0.7x epoch 1's")
+    ds = add_reciprocal_relations(latent_kg(**CONVE_GATE, device=dev))
+    model = MODELS["conve"](ds.n_entities, ds.n_relations, 24, nfilters=8)
+    opt = AdaGrad(lr=0.3)
+    step = make_ce_step(model, opt, directions=("o",), label_smoothing=0.1)
+    loss = run("conve CE", ds, model, opt, step, 8, 25, lambda m: float(m.loss.mean()),
+               scatters=False)
+    check(loss[-1] < 0.8 * loss[0], "9c conve: CE loss fell below 0.8x epoch 1's")
+
+
+@torch.no_grad()
+def zoo_ranking(graph, trained, dev) -> None:
+    """Phase 9d: filtered ranking of the held-out triples with each of 9a's
+    trained states (ConvE through its reciprocal routing), one filter index
+    for all, seconds per 1,000 triples; then `score_all_o` and `score_all_s` of the first
+    `RANK_QUERIES` of them on the card against the CPU, within 1e-4 of the
+    CPU's largest |score|."""
+    test = torch.as_tensor(graph.test[:RANK_QUERIES], dtype=torch.int64)
+    t0 = time.perf_counter()
+    ev = FilteredRankingEval(next(iter(trained.values()))[1], graph.test,
+                             graph.all_triples())
+    log(f"[9d] the filter index of {len(graph.all_triples())} known triples built once, "
+        f"in {time.perf_counter() - t0:.2f} s on the host")
+    for tag, (cfg, model, state) in trained.items():
+        ev.model = model
+        _sync(dev)
+        t0 = time.perf_counter()
+        res = ev(state.params)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        check(bool(np.all((res.ranks >= 1) & (res.ranks <= graph.n_entities))),
+              "9d: ranks lie in [1, n_entities]")
+        cpu = {k: v.cpu() for k, v in state.params.items()}
+        errs = []
+        for fn, ent in ((model.score_all_o, test[:, 0]), (model.score_all_s, test[:, 1])):
+            got = fn(state.params, ent.to(dev), test[:, 2].to(dev)).cpu()
+            want = fn(cpu, ent, test[:, 2])
+            errs.append((float((got - want).abs().max()), float(want.abs().max())))
+        log(f"[9d] {tag}: {1e3 * dt / len(graph.test):.3f} s per 1,000 triples, filtered "
+            f"MRR {res.mrr:.6f}; "
+            f"{len(test)} queries card against CPU, score_all_o max|d| {errs[0][0]:.3e} "
+            f"(max |score| {errs[0][1]:.3e}), score_all_s {errs[1][0]:.3e} "
+            f"({errs[1][1]:.3e})")
+        for (err, size), what in zip(errs, ("score_all_o", "score_all_s")):
+            check(err <= 1e-4 * size, f"9d {tag}: {what} card vs CPU within 1e-4 relative")
+
+
 def main(argv) -> int:
     if argv not in ([], ["--kernel-times"]):
         print("usage: python3 chip_smoke.py [--kernel-times]", file=sys.stderr)
@@ -1265,12 +1549,22 @@ def main(argv) -> int:
     latent_sweep(dev)
     t_8c = time.perf_counter()
     learning_gate(dev)
+    t_8d = time.perf_counter()
+    trained = zoo_margin(fb15k, dev, launches)
+    t_9a = time.perf_counter()
+    conve_recipe(dev, launches)
+    t_9b = time.perf_counter()
+    zoo_gates(dev, launches)
+    t_9c = time.perf_counter()
+    zoo_ranking(fb15k, trained, dev)
     t_end = time.perf_counter()
     log(f"[time] phases 1-2 {t_build - t0:.1f} s, 3 {t_kernels - t_build:.1f} s, "
         f"4 {t_train - t_kernels:.1f} s (graphs included), 5-6 {t_eval - t_train:.1f} s, "
         f"7 {t_surface - t_eval:.1f} s (graphs included), 5e-5g {t_5e - t_surface:.1f} s, "
-        f"8 {t_end - t_5e:.1f} s (8a {t_8a - t_5e:.1f}, 8b {t_8b - t_8a:.1f}, "
-        f"8c {t_8c - t_8b:.1f}, 8d {t_end - t_8c:.1f})")
+        f"8 {t_8d - t_5e:.1f} s (8a {t_8a - t_5e:.1f}, 8b {t_8b - t_8a:.1f}, "
+        f"8c {t_8c - t_8b:.1f}, 8d {t_8d - t_8c:.1f}), 9 {t_end - t_8d:.1f} s "
+        f"(9a {t_9a - t_8d:.1f}, 9b {t_9b - t_9a:.1f}, 9c {t_9c - t_9b:.1f}, "
+        f"9d {t_end - t_9c:.1f})")
     # each kernel at the TransE or RESCAL slice's shape, its other timed
     # shapes under "shapes"
     log(json.dumps({"kernels": [{

@@ -1,9 +1,10 @@
 """skge_torch: the PyTorch/CUDA port of tpu-kge for NVIDIA Hopper.
 
 The JAX package `skge_tpu` is the reference; module and function names
-match it. The port holds the reference family (TransE, RESCAL, HolE,
-ER-MLP) and the factorization family (DistMult, ComplEx, SimplE, TuckER,
-QuatE, with the nuclear 3-norm `n3`), trained two ways: reference-exact,
+match it. The port holds the JAX package's 14 models: the reference
+family (TransE, RESCAL, HolE, ER-MLP), the factorization family
+(DistMult, ComplEx, SimplE, TuckER, QuatE, with the nuclear 3-norm `n3`),
+RotatE, TransH, PairRE, TransR and ConvE, trained two ways: reference-exact,
 with iid negatives from the random-mode, LCWA, corrupted or Bernoulli
 sampler (the fused pairwise step, or the generic expanded-pair pairwise
 and pointwise steps), and against a shared negative pool (pairwise
@@ -24,8 +25,9 @@ hand-written CUDA kernels (`skge_torch.ops.cuda_segment`, and
 from skge_torch.evaluation import (FilteredRankingEval, ReciprocalEvalWrapper,
                                    evaluate, relation_categories,
                                    triple_classification)
-from skge_torch.models import (ERMLP, MODELS, RESCAL, ComplEx, DistMult, HolE,
-                               KGEModel, QuatE, SimplE, TransE, TuckER)
+from skge_torch.models import (ERMLP, MODELS, RESCAL, ComplEx, ConvE, DistMult,
+                               HolE, KGEModel, PairRE, QuatE, RotatE, SimplE,
+                               TransE, TransH, TransR, TuckER)
 from skge_torch.optim import (OPTIMIZERS, SCHEDULES, SGD, AdaGrad, Adam,
                               WarmupCosine, WarmupLinear, make_schedule)
 from skge_torch.sampling import (SAMPLERS, BernoulliSampler, CorruptedSampler,
@@ -56,6 +58,7 @@ __all__ = [
     "AsyncCheckpointer",
     "BernoulliSampler",
     "ComplEx",
+    "ConvE",
     "CorruptedSampler",
     "DistMult",
     "ERMLP",
@@ -66,10 +69,12 @@ __all__ = [
     "MODELS",
     "MetricsLogger",
     "OPTIMIZERS",
+    "PairRE",
     "QuatE",
     "RESCAL",
     "RandomModeSampler",
     "ReciprocalEvalWrapper",
+    "RotatE",
     "SAMPLERS",
     "SCHEDULES",
     "SGD",
@@ -80,6 +85,8 @@ __all__ = [
     "TrainState",
     "Trainer",
     "TransE",
+    "TransH",
+    "TransR",
     "TuckER",
     "WarmupCosine",
     "WarmupLinear",

@@ -7,9 +7,10 @@ and a final test evaluation.
 
 The flags and their defaults are the JAX package's. It runs on the GPU;
 `--cpu` selects the CPU, and without a GPU and without `--cpu` it exits
-with an error. Options of the JAX CLI that the port does not have yet
-(`--trainer partitioned|outofcore` and the models outside the port's
-`MODELS`) exit with a message that names them.
+with an error. ConvE trains on reciprocal relations whether or not
+`--reciprocal` is given, as in the JAX package. `--trainer
+partitioned|outofcore`, which the port does not have yet, exits with a
+message that names it.
 """
 
 from __future__ import annotations
@@ -41,10 +42,9 @@ from skge_torch.utils.checkpoint import save_checkpoint
 
 log = logging.getLogger("skge_torch.experiment")
 
-# the JAX package's models that the port does not have yet
-NOT_PORTED_MODELS = ("rotate", "transh", "transr", "pairre", "conve")
 # the models that take `rparam`, and the factorization models that take `n3`
-RPARAM_MODELS = ("hole", "rescal", "distmult", "complex", "tucker", "simple", "quate")
+RPARAM_MODELS = ("hole", "rescal", "distmult", "complex", "tucker", "simple", "quate",
+                 "rotate", "conve")
 N3_MODELS = ("distmult", "complex", "tucker", "simple", "quate")
 
 
@@ -104,8 +104,11 @@ class Experiment:
                 **kw,
             )
             log.info("using %s synthetic KG (no --fin given)", args.synthetic_kind)
-        if args.reciprocal:
-            if not (args.ce or args.sampled_ce):
+        # ConvE is directional (models/conve.py): always reciprocal
+        reciprocal = args.model == "conve" or args.reciprocal
+        if reciprocal:
+            if (args.reciprocal and args.model != "conve"
+                    and not (args.ce or args.sampled_ce)):
                 raise SystemExit("--reciprocal requires --ce or --sampled-ce")
             self.ds = add_reciprocal_relations(self.ds)
             log.info("reciprocal-relation augmentation (n_relations doubled to "
@@ -145,19 +148,20 @@ class Experiment:
                   else "selfadv" if args.selfadv else "margin"),
             adv_alpha=args.adv_alpha,
             label_smoothing=args.label_smoothing,
-            ce_directions=("o",) if args.reciprocal else ("o", "s"),
+            ce_directions=("o",) if reciprocal else ("o", "s"),
             aggregate=args.aggregate,
             seed=args.seed,
             metrics_jsonl=args.metrics,
         )
         sampler = build_sampler(args.sampler, self.ds, args.ntries, args.k,
+                                modes=(1,) if args.model == "conve" else (0, 1),
                                 device=self.device)
         self.trainer = Trainer(self.model, sampler, cfg, post_epoch=[self._callback],
                                device=self.device)
         # head queries of a reciprocal-trained model rank through the inverse
-        # relation
-        self._eval_model = (ReciprocalEvalWrapper(self.model) if args.reciprocal
-                            else self.model)
+        # relation (ConvE routes them itself)
+        self._eval_model = (ReciprocalEvalWrapper(self.model)
+                            if reciprocal and args.model != "conve" else self.model)
         self.best_mrr = -1.0
         self.best_params = None
         self.evals_without_improvement = 0
@@ -213,14 +217,6 @@ class Experiment:
         return result
 
 
-def _model_name(name: str) -> str:
-    if name in NOT_PORTED_MODELS:
-        raise argparse.ArgumentTypeError(
-            f"--model {name} is not yet ported to skge_torch "
-            f"(ported: {', '.join(sorted(MODELS))})")
-    return name
-
-
 def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="KGE training/evaluation with PyTorch on the GPU "
@@ -232,7 +228,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--tsv-order", default="spo",
                    help="column order of the --tsv files over {s,p,o}")
     p.add_argument("--fout", default=None, help="best-model checkpoint path")
-    p.add_argument("--model", default="hole", type=_model_name, choices=sorted(MODELS))
+    p.add_argument("--model", default="hole", choices=sorted(MODELS))
     p.add_argument("--test-all", dest="test_all", type=int, default=10,
                    help="validate every N epochs (reference --test-all)")
     p.add_argument("--me", type=int, default=500, help="max epochs")

@@ -94,7 +94,9 @@ def test_port_imports_no_jax():
     scanned = {f.relative_to(ROOT).as_posix() for f in files}
     for module in ("utils/__init__", "utils/checkpoint", "utils/metrics", "trainer",
                    "experiment", "native", "utils/debug", "models/distmult",
-                   "models/complexe", "models/simple", "models/tucker", "models/quate"):
+                   "models/complexe", "models/simple", "models/tucker", "models/quate",
+                   "models/rotate", "models/transh", "models/pairre", "models/transr",
+                   "models/conve"):
         assert f"skge_torch/{module}.py" in scanned, module
     for f in files:
         for mod in _imports(f):

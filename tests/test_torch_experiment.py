@@ -1,11 +1,13 @@
 """The port's experiment CLI (skge_torch/experiment.py) against the JAX
 package's: the shared flags keep their defaults; the four loss families
 run end to end on the CPU on a tiny synthetic KG and give a finite MRR,
-and so do the factorization models with `--n3` and `--synthetic-kind
-latent`; the `--fout` checkpoint loads in the JAX package; `--n3` outside
-the factorization models and the options not yet ported exit with a
-message that names them; without `--cpu` and a GPU the CLI exits instead
-of running on the CPU.
+and so do RotatE, TransH, TransR, PairRE and ConvE (ConvE on reciprocal
+relations unasked), the factorization models with `--n3` and
+`--synthetic-kind latent`, and ConvE's CE recipe; `--model` takes the JAX
+CLI's 14 choices; the `--fout` checkpoint loads in the JAX package; `--n3`
+outside the factorization models and the options not yet ported exit
+with a message that names them; without `--cpu` and a GPU the CLI exits
+instead of running on the CPU.
 """
 
 import ast
@@ -66,20 +68,40 @@ def test_unported_options_exit_naming_them(flags, message):
         experiment.main(TINY + flags)
 
 
-def test_unported_model_exits_naming_it(capsys):
-    with pytest.raises(SystemExit):
-        experiment.main(TINY + ["--model", "conve"])
-    assert "--model conve is not yet ported" in capsys.readouterr().err
+def test_model_choices_are_the_jax_packages():
+    def choices(parser):
+        return next(a.choices for a in parser._actions if a.dest == "model")
+
+    assert choices(experiment.make_parser()) == choices(jexperiment.make_parser())
+    assert len(choices(experiment.make_parser())) == 14
 
 
 @pytest.mark.parametrize("model", ["rotate", "transh", "transr", "pairre", "conve"])
-def test_models_outside_the_port_are_refused(model, capsys):
-    assert model in experiment.NOT_PORTED_MODELS and model in jexperiment.MODELS
-    with pytest.raises(SystemExit):
-        experiment.main(TINY + ["--model", model])
-    err = capsys.readouterr().err
-    assert f"--model {model} is not yet ported" in err
-    assert "complex, distmult, ermlp, hole, quate, rescal, simple, transe, tucker" in err
+def test_zoo_models_run_from_the_cli(model, tmp_path, capsys):
+    """Each model the JAX CLI takes trains and ranks through the port's,
+    with the JAX CLI's wiring: `rparam` for RotatE and ConvE; ConvE on
+    reciprocal relations without `--reciprocal`, corrupting objects only
+    and ranking subjects through its own inverse routing; TransR full
+    rank."""
+    fout = str(tmp_path / "best.npz")
+    flags = TINY + ["--model", model, "--rparam", "0.01", "--fout", fout]
+    exp = experiment.Experiment(experiment.make_parser().parse_args(flags))
+    conve = model == "conve"
+    assert exp.model.regularization == (0.01 if model in ("rotate", "conve") else 0.0)
+    assert exp.ds.n_relations == (8 if conve else 4)
+    assert exp.trainer.sampler.modes == ((1,) if conve else (0, 1))
+    assert exp.trainer.config.ce_directions == (("o",) if conve else ("o", "s"))
+    assert exp._eval_model is exp.model
+    if model == "transr":
+        assert not exp.model.factored and exp.model.sweep == "quadratic"
+    assert experiment.main(flags) == 0
+    result = ast.literal_eval(capsys.readouterr().out.strip().splitlines()[-1])
+    assert result["epochs"] == 2
+    assert math.isfinite(result["mrr"]) and 0.0 < result["mrr"] <= 1.0
+    jstate, meta = jload_checkpoint(fout)
+    assert meta["model"] == model
+    assert set(jstate.params) == set(exp.model.init_params(torch.Generator()))
+    assert jstate.params["R"].shape[0] == (8 if conve else 4)
 
 
 LATENT = ["--cpu", "--synthetic-kind", "latent", "--latent-dim", "8",
@@ -95,16 +117,20 @@ LATENT = ["--cpu", "--synthetic-kind", "latent", "--latent-dim", "8",
      "dense_pallas", "--n3", "1e-3", "--rparam", "1e-3"],
     ["--model", "quate", "--sampled-ce", "--sampler", "shared", "--k", "16",
      "--optimizer", "adam", "--lr", "0.01", "--n3", "1e-3"],
-], ids=["complex-ce-n3", "tucker-margin", "quate-sampled_ce"])
+    ["--model", "conve", "--ce", "--reciprocal", "--optimizer", "adam", "--lr", "0.01",
+     "--label-smoothing", "0.1", "--rparam", "1e-3", "--ncomp", "8"],
+], ids=["complex-ce-n3", "tucker-margin", "quate-sampled_ce", "conve-ce"])
 def test_factorization_models_on_a_latent_kg(flags, tmp_path, capsys):
     """The latent KG is JAX's for the same flags; the model takes `n3` and
-    `rparam`; the checkpoint loads in the JAX package."""
+    `rparam`; the checkpoint loads in the JAX package. ConvE's is
+    RECIPES.md's CE recipe, without `--n3`."""
     from skge_tpu.data import latent_kg as jlatent_kg
 
     fout = str(tmp_path / "best.npz")
     args = experiment.make_parser().parse_args(LATENT + flags + ["--fout", fout])
     exp = experiment.Experiment(args)
-    assert exp.model.n3 == 1e-3 and exp.model.rparam == args.rparam
+    assert exp.model.regularization_n3 == (0.0 if "conve" in flags else 1e-3)
+    assert exp.model.rparam == args.rparam
     want = jlatent_kg(120, 4, 160, n_valid=50, n_test=50, latent_dim=8, seed=0)
     for got, w in ((exp.ds.valid, want.valid), (exp.ds.test, want.test)):
         assert (got == w).all()
