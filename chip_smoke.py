@@ -126,6 +126,36 @@ Phases, each fatal:
       trained states, seconds per 1,000, and 64 queries' `score_all_o` and
       `score_all_s` on the card within 1e-4 of the CPU's largest |score|.
 
+10. the out-of-core trainer and serving at FB15k's shape, each step with
+   the launch counts set to 0 just before it and held to their exact
+   values after:
+   10a `OutOfCoreTrainer`, TransE-L1 ncomp 150, k=1,024, P=4, 20 batches a
+      bucket, 3 cached parts with prefetch, the entity table and its
+      AdaGrad slot in pinned host memory: 1 K1 a step on the 16-byte path,
+      uploads within the chained bucket order's bound, untouched rows
+      unchanged, the epoch's time, bytes copied each way, peak memory,
+      and the card's busy time over one bucket epoch;
+   10b the same with prefetch off and with 2 cached parts, within 1e-5;
+   10c P=1 against the in-core epoch from the same params and generator
+      state, on a fifth of the triples, within 1e-5;
+   10d RESCAL ncomp 100 out of core: 1 K2 and 2 K1 a step;
+   10e one bucket epoch on the card against the CPU, TransE-L2 and RESCAL,
+      from the initial params with warm accumulators, the same permutation
+      and pool ids: within 1e-5, slots within 1e-5 of their size, the same
+      violation count;
+   10f RECIPES.md's sampled-CE recipe (HolE, reciprocal, Adam 1e-3,
+      k=8,192) through `Experiment` with `--trainer outofcore --parts 4`,
+      one epoch and one streamed validation, held to the in-core ranking;
+      the `.sharded` checkpoint restored and fitted one more epoch within
+      1e-5 of the uninterrupted run;
+   10g serving on 10a's params at `scripts/serving_bench.py`'s defaults
+      (59,071 queries, batch 1,024, k=10, filtered by the train triples):
+      `LinkPredictor` exact (queries/s, busy time a batch, its first 1,024
+      queries held to the CPU engine), int8, fp8 and bfloat16 (queries/s,
+      top-10 overlap), `StreamedLinkPredictor` in 4 chunks of 4,096 from
+      pinned memory (held to the in-core engine, bytes a batch);
+   10h the JAX package's out-of-core learning gates on the card.
+
 Prints one JSON line with the kernel table, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.
 
@@ -148,15 +178,18 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 import numpy as np
 import torch
 
-from skge_torch import (ERMLP, MODELS, RESCAL, AdaGrad, BernoulliSampler,
-                        CorruptedSampler, FilteredRankingEval, HolE,
-                        LCWASampler, RandomModeSampler, ReciprocalEvalWrapper,
+from skge_torch import (ERMLP, MODELS, RESCAL, AdaGrad, Adam, BernoulliSampler,
+                        CorruptedSampler, DistMult, FilteredRankingEval, HolE,
+                        LCWASampler, LinkPredictor, OutOfCoreTrainer,
+                        RandomModeSampler, ReciprocalEvalWrapper,
+                        StreamedLinkPredictor,
                         SharedNegativeSampler, TrainConfig, Trainer, TrainState,
                         TransE, init_state, load_checkpoint, make_ce_step,
                         make_epoch_fn, make_pairwise_step, make_pointwise_step,
@@ -170,6 +203,7 @@ from skge_torch.experiment import Experiment, make_parser
 from skge_torch.models import conve
 from skge_torch.models.base import ACTIVATIONS
 from skge_torch.ops import _build, cuda_outer, cuda_segment
+from skge_torch.outofcore import BucketPoolSampler, make_bucket_epoch
 from skge_torch.training import regularized
 from skge_torch.utils.debug import assert_finite_state
 
@@ -294,6 +328,35 @@ MARGIN_GATES = {"rotate": ({}, 1), "transh": ({}, 1), "pairre": ({}, 1),
 CONVE_GATE = dict(n_entities=300, n_relations=6, n_train=1200, n_valid=0, n_test=50,
                   latent_dim=6, seed=1)
 RANK_QUERIES = 64  # 9d: score_all_o and score_all_s held to the CPU
+# phase 10: the out-of-core trainer and serving at FB15k's shape. 10a-10b:
+# TransE-L1 at `bench.py`'s width on the shared-pool margin step, P=4, 20
+# batches a bucket, 3 cached parts with prefetch (10b: prefetch off, and 2
+# parts); 10d RESCAL at `--ncomp 100`
+OOC = SimpleNamespace(parts=4, nbatches=20, k=1024, margin=1.0, lr=0.1, seed=0,
+                      cache_parts=3)
+# FB15k's partition at P=4: rows a part (S) and triples a batch of the longest
+# bucket, which set the kernels' shapes on 10a's and 10d's path (off-diagonal
+# buckets: K1 over 2S entity rows). Phase 3 checks and times the kernels there
+# before the graph is built; 10a and 10d hold the trainers to these numbers.
+OOC_SHAPE = SimpleNamespace(part_size=4_212, batch=2_581)
+OOC_P1_TRIPLES = 96_628   # 10c: P=1 against in-core on a fifth of the triples
+OOC_CPU_TRIPLES = 48_314  # 10e: card against CPU on a tenth (the CPU's time)
+OOC_TOL = 1e-5            # K1 sums with atomics: trajectories within 1e-5
+# RECIPES.md's sampled-CE recipe on `--trainer outofcore` at the CLI's shape
+OOC_RECIPE = ["--model", "hole", "--trainer", "outofcore", "--parts", "4",
+              "--reciprocal", "--sampled-ce", "--optimizer", "adam", "--lr", "1e-3",
+              "--k", "8192", "--me", "1", "--test-all", "1", "--nb", "20"]
+RANK_GAP = 1e-5  # ranks may differ only where a candidate lies this close
+# `scripts/serving_bench.py`'s defaults: random (s, p) queries from
+# default_rng(0), batch 1,024, k=10; the streamed engine 4 chunks of 4,096
+SERVE = SimpleNamespace(nqueries=59_071, batch=1024, k=10, chunk=4096,
+                        cpu_queries=1024, profile_batches=5)
+# the JAX package's out-of-core learning gates (tests/test_outofcore.py),
+# at their sizes and thresholds
+OOC_MARGIN_GATE = dict(n_entities=600, n_relations=8, n_train=3000, n_valid=0,
+                       n_test=80, latent_dim=8, seed=3)
+OOC_CE_GATE = dict(n_entities=300, n_relations=6, n_train=900, n_test=40,
+                   latent_dim=6, seed=3)
 
 
 def check(ok: bool, what: str) -> None:
@@ -440,7 +503,8 @@ def check_segment_sum(name, idx, grads, nrows, vector) -> float:
 
 
 # the 16-byte path's timed shapes, each beside the plain version
-VECTOR_TIMED = ("slice", "iid", "selfadv", "ComplEx, SimplE", "QuatE", "TransR's M")
+VECTOR_TIMED = ("slice", "iid", "selfadv", "ComplEx, SimplE", "QuatE", "TransR's M",
+                "out-of-core TransE", "out-of-core RESCAL's E")
 
 
 def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
@@ -453,7 +517,9 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
     (D = 604), full-rank TransR's M gradient (T = one batch, R = relations,
     D = 150 x 150 = 22,500, no count channel), then the scalar path at
     D = 151 and at RESCAL's W counts (D = 1), each beside `index_add_` alone
-    on the same (in-range) ids."""
+    on the same (in-range) ids. The out-of-core bucket steps of 10a (TransE:
+    E's 2S rows and R in one scatter) and 10d (RESCAL's E, D = 101 padded
+    to 104) are checked and timed at their own shapes too."""
     e, r = DATA.n_entities, DATA.n_relations
 
     def padded(row):  # aggregate's count channel, padded to a multiple of 4 columns
@@ -464,6 +530,10 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
     t_slice, rows = 3 * _batch_size(TRANSE) + TRANSE.k, e + r
     t_iid = (3 + 2 * TRANSE_IID.negatives) * _batch_size(TRANSE_IID)
     t_selfadv = 3 * _batch_size(TRANSE) + SELFADV_K
+    # an off-diagonal bucket step's scatter: s, o, r and the pool for TransE,
+    # s, o and the pool for RESCAL (its W goes through K2)
+    s, rescal_w = OOC_SHAPE.part_size, padded(RESCAL_PAIRWISE.ncomp)
+    t_ooc_transe, t_ooc_rescal = 3 * OOC_SHAPE.batch + OOC.k, 2 * OOC_SHAPE.batch + OOC.k
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = [  # name, T, R, D, low id, high id, storage offset, 16-byte path
         ("slice", t_slice, rows, width, 0, rows, 0, True),
@@ -472,6 +542,9 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
         ("ComplEx, SimplE", t_slice, rows, complex_w, 0, rows, 0, True),
         ("QuatE", t_slice, rows, quate_w, 0, rows, 0, True),
         ("TransR's M", _batch_size(TRANSE), r, ZOO_MODELS["transr"][1] ** 2, 0, r, 0, True),
+        ("out-of-core TransE", t_ooc_transe, 2 * s + r, width, 0, 2 * s + r, 0, True),
+        ("out-of-core RESCAL's E", t_ooc_rescal, 2 * s, rescal_w, 0, 2 * s, 0, True),
+        ("out-of-core RESCAL's W counts", OOC_SHAPE.batch, r, 1, 0, r, 0, False),
         ("ids<0 and >=R dropped", t_slice, rows, width, -50, rows + 50, 0, True),
         ("D=151 scalar path", t_slice, rows, width - 1, 0, rows, 0, False),
         ("misaligned view", t_slice, rows, width, 0, rows, 1, False),
@@ -501,7 +574,8 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
         fns["library"] = lambda i, g, _: table.index_add_(0, i, g)
         times = time_rounds(fns, timed[name], f"segment_sum at T={t}, R={nrows}, D={d} ({name})")
         shapes.append(timed_shape(
-            f"T={t}, R={nrows}, D={d}" + (", scalar path" if scalar else ""), times,
+            f"T={t}, R={nrows}, D={d}" + (", scalar path" if scalar else "")
+            + (f", {name}" if name.startswith("out-of-core") else ""), times,
             nbytes=8 * t + 4 * t * d + 4 * nrows * d, flops=t * d))
     return worst, shapes
 
@@ -537,8 +611,9 @@ def segment_outer_sum_checks(dev, verify=True) -> tuple[float, list]:
     relations (~268 occurrences on every row), half and all of the
     occurrences on row 0 (the longest serial chain there can be), and
     Zipf-distributed ids (P(r) ~ 1 / (r + 1): the long rows have
-    neighbouring ids); the plain version is timed at the first only. Each
-    timed shape also times the grouping (`group_by_row`) alone."""
+    neighbouring ids), and 10d's out-of-core bucket step (T = its batch);
+    the plain version is timed at the first and the last only. Each timed
+    shape also times the grouping (`group_by_row`) alone."""
     t_slice, r, d = _batch_size(RESCAL_PAIRWISE), DATA.n_relations, RESCAL_PAIRWISE.ncomp
     gen = torch.Generator(device=dev).manual_seed(2)
     cases = [  # name, T, R, d, rank, low id, high id
@@ -547,6 +622,7 @@ def segment_outer_sum_checks(dev, verify=True) -> tuple[float, list]:
         ("half on row 0", t_slice, 18, d, 2, 0, 18),
         ("all on row 0", t_slice, 18, d, 2, 0, 1),
         ("Zipf", t_slice, r, d, 2, 0, r),
+        ("out-of-core", OOC_SHAPE.batch, r, RESCAL_PAIRWISE.ncomp, 2, 0, r),
         ("ids<0 and >=R dropped", t_slice, r, d, 2, -50, r + 50),
         ("rank 1", t_slice, r, d, 1, 0, r),
         ("ragged T, d=37", 1001, 40, 37, 2, 0, 40),
@@ -571,7 +647,8 @@ def segment_outer_sum_checks(dev, verify=True) -> tuple[float, list]:
                   for _ in range(2))
         if verify:
             worst = max(worst, check_segment_outer_sum(name, idx, us, vs, nrows))
-        if name in ("slice", "WN18 R=18", "half on row 0", "all on row 0", "Zipf"):
+        if name in ("slice", "WN18 R=18", "half on row 0", "all on row 0", "Zipf",
+                    "out-of-core"):
             timed[name] = (idx, us, vs, nrows)
     shapes = []
     for name, (idx, us, vs, nrows) in timed.items():
@@ -579,7 +656,7 @@ def segment_outer_sum_checks(dev, verify=True) -> tuple[float, list]:
         fns = {"kernel": cuda_outer.segment_outer_sum}
         if hasattr(cuda_outer, "group_by_row"):  # an older tree's K2 takes no grouping
             fns["grouping"] = lambda i, _u, _v, n: cuda_outer.group_by_row(i, n)
-        if name == "slice":
+        if name in ("slice", "out-of-core"):
             fns["plain"] = cuda_outer.segment_outer_sum_reference
         times = time_rounds(fns, timed[name], f"segment_outer_sum at T={t}, R={nrows}, "
                             f"d={dd}, rank 2 ({name})", n_plain=3)
@@ -645,33 +722,46 @@ def make_step(cfg, model, opt, sampler, aggregate="dense_pallas"):
     return make_pointwise_step(model, opt, sampler, aggregate=aggregate)
 
 
-def profile(step, state, batches, mask, step_ms, tag) -> float:
-    """The card's busy time per step over 5 steps (torch.profiler), its
-    share of the unprofiled step time, and the operators that take it;
-    returns the busy ms."""
+def profile_run(run, nsteps, host_ms, tag) -> float:
+    """The card's busy time of `run()` (torch.profiler) per step over its
+    `nsteps`, against `host_ms` a step unprofiled; returns the busy ms."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
-        for i in range(5):
-            state, _ = step(state, batches[i], mask)
+        run()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.device_time for e in kernels) / 5e3
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time for e in events) / nsteps / 1e3
     check(busy > 0, "the profiler saw the card's kernels")
-    log(f"[{tag}] device busy {busy:.4f} ms per step ({len(kernels) / 5:.0f} device "
-        f"events per step): {100 * busy / step_ms:.2f}% of the {step_ms:.3f} ms "
-        f"step, idle {100 - 100 * busy / step_ms:.2f}%")
-    # the kernels' time, by the operator that launched them
+    ours = {}  # the ported kernels at this path's shapes: (calls, device us)
+    for e in events:
+        if "segment_" in e.name:
+            calls, us = ours.get(e.name, (0, 0.0))
+            ours[e.name] = (calls + 1, us + e.device_time)
+    for name, (calls, us) in sorted(ours.items()):
+        log(f"[{tag}] kernel {name[:60]}: {calls / nsteps:g} a step, "
+            f"{us / calls / 1e3:.4f} ms a call")
     ops = sorted((e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CPU
                   and e.self_device_time_total > 0),
                  key=lambda e: -e.self_device_time_total)
     total = sum(e.self_device_time_total for e in ops)
-    log(f"[{tag}] device time by operator: " + ", ".join(
-        f"{e.key} {e.self_device_time_total / 5e3:.4f} ms "
-        f"({100 * e.self_device_time_total / total:.1f}%)" for e in ops[:10]))
+    log(f"[{tag}] device busy {busy:.4f} ms per step ({len(events) / nsteps:.0f} device "
+        f"events per step): {100 * busy / host_ms:.2f}% of the {host_ms:.3f} ms step, "
+        f"idle {100 - 100 * busy / host_ms:.2f}%; by operator: " + ", ".join(
+            f"{e.key} {e.self_device_time_total / nsteps / 1e3:.4f} ms "
+            f"({100 * e.self_device_time_total / total:.1f}%)" for e in ops[:10]))
     return busy
+
+
+def profile(step, state, batches, mask, step_ms, tag) -> float:
+    """The card's busy time per step over 5 steps (`profile_run`)."""
+    def five_steps():
+        st = state
+        for i in range(5):
+            st, _ = step(st, batches[i], mask)
+
+    return profile_run(five_steps, 5, step_ms, tag)
 
 
 def train(cfg, ds, dev, tag="4"):
@@ -1496,6 +1586,509 @@ def zoo_ranking(graph, trained, dev) -> None:
             check(err <= 1e-4 * size, f"9d {tag}: {what} card vs CPU within 1e-4 relative")
 
 
+def _ooc_steps(tr, epochs=1) -> int:
+    """Step calls of `epochs` epochs: every bucket, min(nbatches, length)."""
+    return epochs * len(tr.buckets) * max(1, min(tr.nbatches, tr.bucket_len))
+
+
+def _ooc(model, triples, dev, opt=None, **kw) -> OutOfCoreTrainer:
+    args = dict(n_parts=OOC.parts, margin=OOC.margin, k=OOC.k, nbatches=OOC.nbatches,
+                seed=OOC.seed, cache_parts=OOC.cache_parts, prefetch=True, device=dev)
+    args.update(kw)
+    return OutOfCoreTrainer(model, opt or AdaGrad(lr=OOC.lr), triples, **args)
+
+
+def _ooc_fit(tr, tag, what, want, launches, epochs=1) -> float:
+    """`epochs` of `tr`, the counts set to 0 just before and held to `want`
+    after (on the card), added to `launches`; returns the seconds."""
+    dev = tr.device
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    tr.fit(epochs=epochs)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    steps = _ooc_steps(tr, epochs)
+    m = tr.metrics[-1]
+    log(f"[{tag}] {what}: {len(tr.buckets)} buckets, {steps} steps in {dt:.3f} s "
+        f"({steps / dt:.2f} steps/s, {1e3 * dt / steps:.3f} ms a step): loss "
+        f"{m['loss']:.6e}, violations {int(m['nviolations'])}; uploads {tr.uploads}, "
+        f"{tr.bytes_uploaded / 1e6:.3f} MB up, {tr.bytes_downloaded / 1e6:.3f} MB down; "
+        f"kernel launches {counts}")
+    check(np.isfinite(m["loss"]), f"{tag}: finite loss")
+    if dev.type == "cuda":
+        check(counts == want, f"{tag} {what}: launches {counts}, want {want}")
+    for name in launches:
+        launches[name] += counts[name]
+    return dt
+
+
+def _ooc_rows_bytes(tr) -> int:
+    """Bytes of one part: its rows and every optimizer slot."""
+    s = tr.part_size
+    return sum(v[:s].numel() * v.element_size() for v in tr.e_host.values())
+
+
+def _ooc_shape_held(tr, tag) -> None:
+    """The trainer's part size and batch are the ones phase 3 checked the
+    kernels at (OOC_SHAPE)."""
+    batch = -(-tr.bucket_len // max(1, min(tr.nbatches, tr.bucket_len)))
+    check((tr.part_size, batch) == (OOC_SHAPE.part_size, OOC_SHAPE.batch),
+          f"{tag}: S = {tr.part_size} and a batch of {batch} triples, as phase 3 "
+          f"checked the kernels at ({OOC_SHAPE.part_size}, {OOC_SHAPE.batch})")
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max(float(np.max(np.abs(np.asarray(a[k], np.float64) - np.asarray(b[k]))))
+               for k in a)
+
+
+def outofcore_margin(graph, dev, launches):
+    """10a-10b: the out-of-core TransE-L1 epoch at P=4, the same epoch with
+    prefetch off and with 2 cached parts; then the card's busy time over one
+    bucket epoch. Returns the 10a trainer."""
+    model = TransE(graph.n_entities, graph.n_relations, 150)
+    t0 = time.perf_counter()
+    tr = _ooc(model, graph.train, dev)
+    log(f"[10a] trainer built in {time.perf_counter() - t0:.2f} s (partition, "
+        f"relabel, pinned tables): S = {tr.part_size} rows a part, part counts "
+        f"{tr.part_counts.tolist()}, bucket length {tr.bucket_len}")
+    _ooc_shape_held(tr, "10a")
+    init = tr.e_host["param"].clone()
+    steps = _ooc_steps(tr)
+    dt = _ooc_fit(tr, "10a", "TransE-L1 margin P=4, 3 cached parts, prefetch",
+                  _launches(steps, 0, steps), launches)
+    check(tr.uploads <= len(tr.buckets) + 1,
+          f"10a: {tr.uploads} uploads within the chained-order bound {len(tr.buckets) + 1}")
+    if dev.type == "cuda":
+        part = _ooc_rows_bytes(tr)
+        log(f"[10a] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} "
+            f"GiB; the entity rows it should hold: {OOC.cache_parts} cached parts and a "
+            f"bucket's 2S rows, {(OOC.cache_parts + 2) * part / 2**20:.1f} MiB "
+            f"({part / 2**20:.2f} MiB a part, rows and p2)")
+    s = tr.part_size
+    touched = np.zeros(init.shape[0], bool)
+    for (pi, pj), rows in tr.buckets.items():
+        touched[rows[:, 0]] = touched[rows[:, 1]] = True
+        for p in (pi, pj):
+            touched[p * s : p * s + tr.part_counts[p]] = True
+    check(bool(torch.equal(tr.e_host["param"][~touched], init[~touched])),
+          f"10a: the {int((~touched).sum())} rows no bucket touches are unchanged")
+    ref = tr.params()
+    check(all(np.isfinite(v).all() for v in ref.values()), "10a: params finite")
+    check(float(np.linalg.norm(ref["E"], axis=1).max()) <= 1 + 1e-5, "10a: normless1")
+    for kw, tag in ((dict(prefetch=False), "prefetch off"), (dict(cache_parts=2),
+                                                              "2 cached parts")):
+        other = _ooc(model, graph.train, dev, **kw)
+        _ooc_fit(other, "10b", f"TransE-L1 margin P=4, {tag}", _launches(steps, 0, steps),
+                 launches)
+        err = _max_diff(ref, other.params())
+        log(f"[10b] {tag}: max |dparam| {err:.3e} against 10a")
+        check(err <= OOC_TOL, f"10b {tag}: within {OOC_TOL} of 10a")
+    if dev.type == "cuda":
+        pi, pj = tr._bucket_order()[1]
+        nb = max(1, min(tr.nbatches, tr.bucket_len))
+        _sync(dev)
+        t0 = time.perf_counter()
+        tr._bucket_epoch(pi, pj)
+        _sync(dev)
+        host_ms = 1e3 * (time.perf_counter() - t0) / nb
+        profile_run(lambda: tr._bucket_epoch(pi, pj), nb, host_ms,
+                    f"10a bucket {(pi, pj)}")
+        tr.flush()
+    log(f"[10a] epoch {dt:.3f} s")
+    return tr
+
+
+def outofcore_incore(graph, dev, launches) -> None:
+    """10c: P=1 against the in-core shared-pool step under `make_epoch_fn`,
+    from the same initial params and the same generator seed."""
+    xs = graph.train[:OOC_P1_TRIPLES]
+    model = TransE(graph.n_entities, graph.n_relations, 150)
+    opt = AdaGrad(lr=OOC.lr)
+    tr = _ooc(model, xs, dev, n_parts=1, cache_parts=2)
+    gen = torch.Generator(device=dev)
+    gen.set_state(tr.generator.get_state())
+    state = TrainState(
+        params={"E": tr.e_host["param"].to(dev), "R": tr.dev_params["R"].clone()},
+        opt_state={"E": {"p2": tr.e_host["p2"].to(dev)},
+                   "R": {"p2": tr.dev_opt["R"]["p2"].clone()}},
+        generator=gen, step=0)
+    step = make_pairwise_step(model, opt, SharedNegativeSampler(graph.n_entities, k=OOC.k),
+                              OOC.margin, aggregate="dense")
+    epoch = make_epoch_fn(step, len(xs), OOC.nbatches)
+    reset_counts()
+    state, m = epoch(state, torch.as_tensor(xs, dtype=torch.int64, device=dev))
+    _sync(dev)
+    counts = read_counts()
+    if dev.type == "cuda":
+        check(counts == _launches(OOC.nbatches, 0, OOC.nbatches),
+              f"10c in-core: launches {counts}")
+    for name in launches:
+        launches[name] += counts[name]
+    _ooc_fit(tr, "10c", f"TransE-L1 margin P=1 on {len(xs)} triples",
+             _launches(OOC.nbatches, 0, OOC.nbatches), launches)
+    got = tr.params()
+    err = _max_diff(got, {k: v.cpu().numpy() for k, v in state.params.items()})
+    viol = int(m.nviolations.sum())
+    log(f"[10c] P=1 against in-core: max |dparam| {err:.3e}; violations "
+        f"{int(tr.metrics[-1]['nviolations'])} and {viol}")
+    check(err <= OOC_TOL, f"10c: P=1 within {OOC_TOL} of in-core")
+
+
+def outofcore_rescal(graph, dev, launches) -> None:
+    """10d: out-of-core RESCAL at `--ncomp 100`, P=4: K2 for W, which stays
+    on the card, and K1 for E and W's counts."""
+    model = RESCAL(graph.n_entities, graph.n_relations, 100)
+    tr = _ooc(model, graph.train, dev)
+    _ooc_shape_held(tr, "10d")
+    steps = _ooc_steps(tr)
+    dt = _ooc_fit(tr, "10d", "RESCAL margin P=4", _launches(2 * steps, steps, steps),
+                  launches)
+    check(all(np.isfinite(v).all() for v in tr.params().values()), "10d: params finite")
+    if dev.type == "cuda":
+        pi, pj = tr._bucket_order()[1]
+        nb = max(1, min(tr.nbatches, tr.bucket_len))
+        profile_run(lambda: tr._bucket_epoch(pi, pj), nb, 1e3 * dt / steps,
+                    f"10d bucket {(pi, pj)}")
+        tr.flush()
+
+
+class FixedBucketPools(BucketPoolSampler):
+    """A bucket sampler handing out given pools, on the generator's device."""
+
+    def __init__(self, base, pools):
+        super().__init__(base.slot_stride, base.k, base.modes, base.sizes)
+        self.pools = list(pools)
+
+    def pool(self, generator, pos, mask):
+        return self.pools.pop(0).to(generator.device)
+
+
+def _state_to_cpu(card, model, xs) -> OutOfCoreTrainer:
+    """A CPU trainer on `xs` holding `card`'s state (host table, slots, the
+    card's params and optimizer state, step)."""
+    cpu = _ooc(model, xs, torch.device("cpu"), cache_parts=2, prefetch=False)
+    for kk, v in card.e_host.items():
+        cpu.e_host[kk].copy_(v)
+    cpu.dev_params = {kk: v.cpu() for kk, v in card.dev_params.items()}
+    cpu.dev_opt = {kk: {sn: v.cpu() for sn, v in sl.items()}
+                   for kk, sl in card.dev_opt.items()}
+    cpu.step = card.step
+    return cpu
+
+
+def _bucket_against_cpu(tag, card, cpu, one_step) -> None:
+    """One off-diagonal bucket on the card and on the CPU from the same
+    state, with the same permutation and pool ids: its whole epoch, or its
+    first step alone (`one_step`: the trainer's margin step on the 2S-row
+    bucket model, over the epoch's first batch). Params within STEP_TOL,
+    each optimizer slot within STEP_TOL of its size, the same violations."""
+    pi, pj = next(b for b in card._bucket_order() if b[0] != b[1])
+    gen = torch.Generator().manual_seed(1)
+    perm = torch.randperm(card.bucket_len, generator=gen)
+    base = card._samplers[False]
+    base.sizes = (int(card.part_counts[pi]), int(card.part_counts[pj]))
+    nb = max(1, min(card.nbatches, card.bucket_len))
+    batch = -(-card.bucket_len // nb)
+    if one_step:
+        perm, nb = perm[:batch], 1
+    pools = [base.pool(gen, None, None) for _ in range(nb)]
+    out = []
+    for tr in (card, cpu):
+        sampler = tr._samplers[False] = FixedBucketPools(base, pools)
+        tr._epochs.pop(False, None)
+        if one_step:
+            bucket_model = dataclasses.replace(tr.full_model, n_entities=2 * tr.part_size)
+            tr._epochs[False] = make_bucket_epoch(make_pairwise_step(
+                bucket_model, tr.opt, sampler, OOC.margin, aggregate=tr.aggregate), batch, 1)
+        loss, nviol = tr._bucket_epoch(pi, pj, perm=perm)
+        tr.flush()
+        out.append((float(loss), int(nviol)))
+    err = max(_max_diff({"E": cpu.e_host["param"].numpy()},
+                        {"E": card.e_host["param"].numpy()}),
+              _max_diff({k: v.numpy() for k, v in cpu.dev_params.items()},
+                        {k: v.cpu().numpy() for k, v in card.dev_params.items()}))
+    # each optimizer slot within STEP_TOL of its size, as in phase 5
+    slots = [(cpu.e_host[sn], card.e_host[sn]) for sn in card.e_host if sn != "param"]
+    slots += [(cpu.dev_opt[kk][sn], v.cpu()) for kk, sl in card.dev_opt.items()
+              for sn, v in sl.items()]
+    slot_err = max(float((a - b).abs().max() / max(1.0, float(b.abs().max())))
+                   for a, b in slots)
+    log(f"[10e] {tag} bucket {(pi, pj)}, {nb} step{'s' * (nb > 1)} of {batch} triples, "
+        f"card against CPU: max |dparam| {err:.3e}, slots within {slot_err:.3e} of their "
+        f"size; violations {out[0][1]} and {out[1][1]}, loss {out[0][0]:.6e} and "
+        f"{out[1][0]:.6e}")
+    check(err <= STEP_TOL, f"10e {tag}: card within {STEP_TOL} of the CPU")
+    check(slot_err <= STEP_TOL, f"10e {tag}: slots within {STEP_TOL}")
+    check(out[0][1] == out[1][1], f"10e {tag}: the same violation count")
+
+
+def outofcore_against_cpu(graph, warm, dev) -> None:
+    """10e: out-of-core bucket steps on the card held to the CPU. As phase
+    5, the state is the initial params with warm accumulators: every pair
+    then violates by a wide margin, so no margin test sits within rounding
+    of its edge. From trained params a pair near the edge flips on the
+    other device and moves its rows by a whole term (measured: RESCAL
+    9.8e-03 with 2 of 1,127,182 violations flipped).
+
+    - TransE-L1, the main path's model, one step at its shape (the full
+      graph, P=4, a batch of OOC_SHAPE.batch) with 10a's accumulators. A
+      step from equal params gives the same L1 signs on both devices, so
+      only the gradient sums' rounding differs. Over a whole epoch the L1
+      trajectories part (measured: 1.0e-03 in 20 steps), presumably as an
+      |h + r - t| within rounding of 0 takes the other sign once the params
+      differ by that rounding; that cause is inferred, not measured.
+    - TransE-L2 and RESCAL, a whole bucket epoch each on a tenth of the
+      triples (the CPU's time), accumulators from a warm epoch there."""
+    model = TransE(graph.n_entities, graph.n_relations, 150)
+    card = _ooc(model, graph.train, dev, cache_parts=2, prefetch=False)
+    for kk, v in warm.e_host.items():
+        if kk != "param":
+            card.e_host[kk].copy_(v)
+    card.dev_opt = {kk: {sn: v.clone() for sn, v in sl.items()}
+                    for kk, sl in warm.dev_opt.items()}
+    _bucket_against_cpu("TransE-L1", card, _state_to_cpu(card, model, graph.train), True)
+    xs = graph.train[:OOC_CPU_TRIPLES]
+    for tag, model in (("TransE-L2", TransE(graph.n_entities, graph.n_relations, 150,
+                                            l1=False)),
+                       ("RESCAL", RESCAL(graph.n_entities, graph.n_relations, 100))):
+        card = _ooc(model, xs, dev, cache_parts=2, prefetch=False)
+        init_e = card.e_host["param"].clone()
+        init = {kk: v.clone() for kk, v in card.dev_params.items()}
+        card.fit(epochs=1)  # warm accumulators
+        card.e_host["param"].copy_(init_e)
+        card.dev_params = init
+        _bucket_against_cpu(tag, card, _state_to_cpu(card, model, xs), False)
+
+
+def _min_gaps(model, params, test, dev) -> np.ndarray:
+    """(2, n): each query's least |score - target score| over the other
+    candidates, objects then subjects, on the card."""
+    t = torch.as_tensor(test, dtype=torch.int64, device=dev)
+    out = []
+    for d in ("o", "s"):
+        gaps = []
+        for b in torch.split(t, 1024):
+            sc = (model.score_all_o(params, b[:, 0], b[:, 2]) if d == "o"
+                  else model.score_all_s(params, b[:, 1], b[:, 2]))
+            tgt = b[:, 1] if d == "o" else b[:, 0]
+            rows = torch.arange(len(b), device=dev)
+            diff = torch.abs(sc - sc[rows, tgt][:, None])
+            diff[rows, tgt] = float("inf")
+            gaps.append(diff.min(dim=1).values)
+        out.append(torch.cat(gaps).cpu().numpy())
+    return np.stack(out)
+
+
+def ranks_agree(tag, got, want, gaps) -> None:
+    """Streamed against in-core ranks on the card: equal wherever no
+    candidate lies within RANK_GAP of the target (a (B, S) and a (B, n_e)
+    sweep may round a score differently), and the MRRs within 1e-4."""
+    far = gaps > RANK_GAP
+    for a, b, what in ((got.ranks, want.ranks, "filtered"),
+                       (got.ranks_raw, want.ranks_raw, "raw")):
+        check(bool(np.array_equal(a[far], b[far])),
+              f"{tag}: {what} ranks equal where no candidate lies within {RANK_GAP}")
+    log(f"[{tag}] streamed MRR {got.mrr:.6f}, in-core {want.mrr:.6f}; "
+        f"{int((~far).sum())} of {far.size} ranks with a candidate within {RANK_GAP}, "
+        f"{int((got.ranks != want.ranks).sum())} ranks differ")
+    check(abs(got.mrr - want.mrr) <= 1e-4, f"{tag}: MRR within 1e-4")
+
+
+def outofcore_recipe(dev, launches) -> None:
+    """10f: RECIPES.md's sampled-CE recipe through `Experiment` with
+    `--trainer outofcore --parts 4`, one epoch and one validation; the
+    validation held to the in-core ranking; the `.sharded` checkpoint
+    restored into a new trainer and fitted 1 more epoch against the
+    uninterrupted run."""
+    cpu = ["--cpu"] if dev.type == "cpu" else []
+    fout = f"{OUT}/10f.npz"
+    shutil.rmtree(fout + ".sharded", ignore_errors=True)
+    argv = cpu + FB15K_ARGS + OOC_RECIPE + ["--fout", fout]
+    t0 = time.perf_counter()
+    exp = Experiment(make_parser().parse_args(argv))
+    tr = exp.ooc
+    log(f"[10f] Experiment built in {time.perf_counter() - t0:.2f} s: S = "
+        f"{tr.part_size}, {len(tr.buckets)} buckets of up to {tr.bucket_len} triples")
+    steps = _ooc_steps(tr)
+    reset_counts()
+    t0 = time.perf_counter()
+    result = exp.run()
+    _sync(dev)
+    counts = read_counts()
+    log(f"[10f] run in {time.perf_counter() - t0:.2f} s (train "
+        f"{result['train_seconds']:.2f} s, {steps} steps): kernel launches {counts}; "
+        "test " + json.dumps({k: round(v, 6) for k, v in result.items()}))
+    if dev.type == "cuda":
+        check(counts == _launches(steps, 0, steps), f"10f: launches {counts}")
+    for name in launches:
+        launches[name] += counts[name]
+    check(np.isfinite(result["mrr"]) and 0 < result["mrr"] <= 1, "10f: finite test MRR")
+    check(os.path.exists(os.path.join(fout + ".sharded", "manifest.json")),
+          "10f: the .sharded checkpoint")
+    params = {k: torch.as_tensor(v, device=dev) for k, v in exp.best_params.items()}
+    t0 = time.perf_counter()
+    wrapped = ReciprocalEvalWrapper(exp.model)
+    incore = FilteredRankingEval(wrapped, exp.ds.valid, exp.ds.all_triples(),
+                                 batch_size=1024)(params)
+    gaps = _min_gaps(wrapped, params, exp.ds.valid, dev)
+    log(f"[10f] in-core validation of {len(exp.ds.valid)} triples in "
+        f"{time.perf_counter() - t0:.2f} s")
+    ranks_agree("10f valid", exp.best_valid, incore, gaps)
+    again = Experiment(make_parser().parse_args(argv)).ooc.restore(fout + ".sharded")
+    reset_counts()
+    tr.fit(epochs=1)
+    again.fit(epochs=1)
+    counts = read_counts()
+    for name in launches:
+        launches[name] += counts[name]
+    err = _max_diff(tr.params(), again.params())
+    log(f"[10f] resumed from the .sharded checkpoint and fitted 1 epoch: max |dparam| "
+        f"{err:.3e} against the uninterrupted run")
+    check(err <= OOC_TOL, f"10f: resume within {OOC_TOL}")
+
+
+def host_waits(run) -> int:
+    """The synchronizing CUDA calls in `run()`: each a point where the host
+    waits for the card (torch's sync debug mode)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def serving(graph, params, dev) -> None:
+    """10g: the serving engines on 10a's trained TransE-L1, at
+    `scripts/serving_bench.py`'s defaults, filtered by the train triples."""
+    model = TransE(graph.n_entities, graph.n_relations, 150)
+    rng = np.random.default_rng(0)
+    queries = np.stack([rng.integers(0, graph.n_entities, SERVE.nqueries),
+                        rng.integers(0, graph.n_relations, SERVE.nqueries)], axis=1)
+    known, k, n = graph.train, SERVE.k, SERVE.nqueries
+    t0 = time.perf_counter()
+    exact = LinkPredictor(model, params, known=known, batch_size=SERVE.batch, device=dev)
+    log(f"[10g] LinkPredictor built in {time.perf_counter() - t0:.2f} s (filter index "
+        f"of {len(known)} triples)")
+
+    def filtered_like_exact(pred):  # the same filter index, built once
+        pred._index = exact._index
+        return pred
+
+    def timed(pred, what):
+        pred.top_k(queries[: SERVE.batch], k)  # warm-up
+        _sync(dev)
+        t0 = time.perf_counter()
+        res = pred.top_k(queries, k)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        check(res.entities.shape == (n, k) and np.isfinite(res.scores).all(),
+              f"10g {what}: (n, k) finite results")
+        log(f"[10g] {what}: {n} queries in {dt:.3f} s, {n / dt:.1f} queries/s "
+            f"(host to host, {1e3 * dt / -(-n // SERVE.batch):.3f} ms a batch)")
+        return res, dt
+
+    res, dt = timed(exact, "LinkPredictor exact")
+    if dev.type == "cuda":
+        nb = SERVE.profile_batches
+        profile_run(lambda: exact.top_k(queries[: nb * SERVE.batch], k), nb,
+                    1e3 * dt / -(-n // SERVE.batch), "10g exact batch")
+    # the rule: ids equal wherever the reference's k-th and (k+1)-th scores
+    # lie more than RANK_GAP apart (as a set), in order where every gap does
+    ref11 = exact.top_k(queries[: SERVE.cpu_queries], k + 1)
+
+    def agree(tag, got, ref):
+        gaps = -np.diff(ref.scores.astype(np.float64), axis=1)
+        cut = gaps[:, k - 1] > RANK_GAP
+        ordered = (gaps > RANK_GAP).all(axis=1)
+        sets = np.sort(got.entities, axis=1) == np.sort(ref.entities[:, :k], axis=1)
+        check(bool(sets[cut].all()), f"{tag}: the top {k} where the k-th gap > {RANK_GAP}")
+        check(bool(np.array_equal(got.entities[ordered], ref.entities[ordered, :k])),
+              f"{tag}: ids in order where every gap > {RANK_GAP}")
+        fin = np.isfinite(ref.scores[:, :k])
+        err = float(np.max(np.abs(got.scores - ref.scores[:, :k])[fin]))
+        log(f"[{tag}] {int(cut.sum())} of {len(cut)} queries with a gap at the k-th "
+            f"place, {int(ordered.sum())} with every gap > {RANK_GAP}; max |dscore| {err:.3e}")
+        check(err <= RANK_GAP, f"{tag}: scores within {RANK_GAP}")
+
+    t0 = time.perf_counter()
+    cpu11 = filtered_like_exact(LinkPredictor(
+        model, params, batch_size=SERVE.batch, device="cpu")).top_k(
+            queries[: SERVE.cpu_queries], k + 1)
+    log(f"[10g] the CPU engine on {SERVE.cpu_queries} queries in "
+        f"{time.perf_counter() - t0:.2f} s")
+    first = SimpleNamespace(entities=res.entities[: SERVE.cpu_queries],
+                            scores=res.scores[: SERVE.cpu_queries])
+    agree("10g card vs CPU", first, cpu11)
+    for quantize in ("int8", "fp8", "bfloat16"):
+        q, _ = timed(filtered_like_exact(LinkPredictor(
+            model, params, batch_size=SERVE.batch, quantize=quantize, device=dev)),
+            f"LinkPredictor {quantize}")
+        overlap = np.mean([len(set(a) & set(b)) / k for a, b in zip(res.entities, q.entities)])
+        log(f"[10g] {quantize}: mean top-{k} overlap with exact {overlap:.4f}")
+    streamed = filtered_like_exact(StreamedLinkPredictor(
+        model, params, batch_size=SERVE.batch, chunk=SERVE.chunk, device=dev))
+    sres, sdt = timed(streamed, f"StreamedLinkPredictor chunk {SERVE.chunk}")
+    batches = -(-n // SERVE.batch) + 1  # the timed run and its warm-up batch
+    log(f"[10g] streamed: {streamed.bytes_uploaded / batches / 1e6:.3f} MB uploaded a "
+        f"query batch of {SERVE.batch}")
+    if dev.type == "cuda":
+        nb = SERVE.profile_batches
+        profile_run(lambda: streamed.top_k(queries[: nb * SERVE.batch], k), nb,
+                    1e3 * sdt / -(-n // SERVE.batch), "10g streamed batch")
+        one = filtered_like_exact(StreamedLinkPredictor(
+            model, params, batch_size=SERVE.batch, chunk=graph.n_entities, device=dev))
+        waits = {what: host_waits(lambda: pred.top_k(queries[: SERVE.batch], k))
+                 for what, pred in (("exact", exact), ("streamed", streamed),
+                                    ("streamed in 1 chunk", one))}
+        log(f"[10g] the host's waits on the card in one query batch: {waits}")
+        check(waits["streamed"] == waits["streamed in 1 chunk"],
+              "10g: the streamed engine's host waits do not grow with its chunks")
+    agree("10g streamed vs in-core", SimpleNamespace(
+        entities=sres.entities[: SERVE.cpu_queries],
+        scores=sres.scores[: SERVE.cpu_queries]), ref11)
+
+
+def outofcore_gates(dev, launches) -> None:
+    """10h: the JAX package's out-of-core learning gates on the card."""
+    ds = latent_kg(**OOC_MARGIN_GATE, device=dev)
+    model = TransE(ds.n_entities, ds.n_relations, 24, l1=False)
+    tr = _ooc(model, ds.train, dev, n_parts=2, k=64, nbatches=10, cache_parts=2)
+    steps = _ooc_steps(tr, 15)
+    _ooc_fit(tr, "10h", "margin gate", _launches(steps, 0, steps), launches, epochs=15)
+    m = tr.metrics
+    params = {k: torch.as_tensor(v, device=dev) for k, v in tr.params().items()}
+    mrr = FilteredRankingEval(model, ds.test, ds.all_triples(), batch_size=32)(params).mrr
+    log(f"[10h] margin gate: violations {m[0]['nviolations']:.0f} -> "
+        f"{m[-1]['nviolations']:.0f}, MRR {mrr:.4f}")
+    check(m[-1]["nviolations"] < 0.7 * m[0]["nviolations"], "10h margin: violations")
+    check(mrr > 2.0 / ds.n_entities, "10h margin: MRR over random")
+    ds = latent_kg(**OOC_CE_GATE, device=dev)
+    for loss in ("ce", "sampled_ce"):
+        train = add_reciprocal_relations(ds) if loss == "sampled_ce" else ds
+        model = DistMult(train.n_entities, train.n_relations, 16)
+        kw = dict(k=64, ce_directions=("o",)) if loss == "sampled_ce" else {}
+        tr = _ooc(model, train.train, dev, opt=Adam(lr=1e-2), n_parts=2, nbatches=8,
+                  loss=loss, label_smoothing=0.1, cache_parts=2, **kw)
+        steps = _ooc_steps(tr, 12) if loss == "sampled_ce" else 0
+        _ooc_fit(tr, "10h", f"{loss} gate", _launches(steps, 0, steps), launches,
+                 epochs=12)
+        losses = [r["loss"] for r in tr.metrics]
+        res = tr.evaluate(ds.test, train.all_triples(), batch_size=32,
+                          reciprocal=loss == "sampled_ce")
+        log(f"[10h] {loss} gate: loss {losses[0]:.4f} -> {losses[-1]:.4f}, streamed MRR "
+            f"{res.mrr:.4f}")
+        check(losses[-1] < 0.8 * losses[0], f"10h {loss}: loss")
+        check(res.mrr > 3.0 / ds.n_entities, f"10h {loss}: MRR over random")
+
+
 def main(argv) -> int:
     if argv not in ([], ["--kernel-times"]):
         print("usage: python3 chip_smoke.py [--kernel-times]", file=sys.stderr)
@@ -1557,14 +2150,30 @@ def main(argv) -> int:
     zoo_gates(dev, launches)
     t_9c = time.perf_counter()
     zoo_ranking(fb15k, trained, dev)
+    t_9 = time.perf_counter()
+    ooc = outofcore_margin(fb15k, dev, launches)
+    t_10a = time.perf_counter()
+    outofcore_incore(fb15k, dev, launches)
+    t_10c = time.perf_counter()
+    outofcore_rescal(fb15k, dev, launches)
+    t_10d = time.perf_counter()
+    outofcore_against_cpu(fb15k, ooc, dev)
+    t_10e = time.perf_counter()
+    outofcore_recipe(dev, launches)
+    t_10f = time.perf_counter()
+    serving(fb15k, ooc.params(), dev)
+    t_10g = time.perf_counter()
+    outofcore_gates(dev, launches)
     t_end = time.perf_counter()
     log(f"[time] phases 1-2 {t_build - t0:.1f} s, 3 {t_kernels - t_build:.1f} s, "
         f"4 {t_train - t_kernels:.1f} s (graphs included), 5-6 {t_eval - t_train:.1f} s, "
         f"7 {t_surface - t_eval:.1f} s (graphs included), 5e-5g {t_5e - t_surface:.1f} s, "
         f"8 {t_8d - t_5e:.1f} s (8a {t_8a - t_5e:.1f}, 8b {t_8b - t_8a:.1f}, "
-        f"8c {t_8c - t_8b:.1f}, 8d {t_8d - t_8c:.1f}), 9 {t_end - t_8d:.1f} s "
+        f"8c {t_8c - t_8b:.1f}, 8d {t_8d - t_8c:.1f}), 9 {t_9 - t_8d:.1f} s "
         f"(9a {t_9a - t_8d:.1f}, 9b {t_9b - t_9a:.1f}, 9c {t_9c - t_9b:.1f}, "
-        f"9d {t_end - t_9c:.1f})")
+        f"9d {t_9 - t_9c:.1f}), 10 {t_end - t_9:.1f} s (10a-b {t_10a - t_9:.1f}, "
+        f"10c {t_10c - t_10a:.1f}, 10d {t_10d - t_10c:.1f}, 10e {t_10e - t_10d:.1f}, "
+        f"10f {t_10f - t_10e:.1f}, 10g {t_10g - t_10f:.1f}, 10h {t_end - t_10g:.1f})")
     # each kernel at the TransE or RESCAL slice's shape, its other timed
     # shapes under "shapes"
     log(json.dumps({"kernels": [{

@@ -14,7 +14,12 @@ Adam with lr schedules, filtered-ranking evaluation and triple
 classification, the `Trainer`, npz checkpoints that the JAX package also
 reads, the learnable synthetic KGs (`data.latent_kg`), the runtime checks
 of `utils.debug`, and the `experiment` CLI
-(`python -m skge_torch.experiment`). The gradient scatters are
+(`python -m skge_torch.experiment`). Serving: exact top-K link prediction
+over a table on the device (`LinkPredictor`, int8/fp8/bfloat16 tables) or
+streamed from pinned host memory (`StreamedLinkPredictor`). The
+out-of-core trainer (`OutOfCoreTrainer`, `--trainer outofcore`) keeps the
+entity table in pinned host memory and trains PyTorch-BigGraph-style
+buckets of partitions on the device. The gradient scatters are
 hand-written CUDA kernels (`skge_torch.ops.cuda_segment`, and
 `skge_torch.ops.cuda_outer` for RESCAL's factored shared-pool W gradient).
 
@@ -30,9 +35,13 @@ from skge_torch.models import (ERMLP, MODELS, RESCAL, ComplEx, ConvE, DistMult,
                                TransE, TransH, TransR, TuckER)
 from skge_torch.optim import (OPTIMIZERS, SCHEDULES, SGD, AdaGrad, Adam,
                               WarmupCosine, WarmupLinear, make_schedule)
+from skge_torch.outofcore import OutOfCoreTrainer
 from skge_torch.sampling import (SAMPLERS, BernoulliSampler, CorruptedSampler,
                                  LCWASampler, RandomModeSampler,
                                  SharedNegativeSampler)
+from skge_torch.serving import (LinkPredictor, StreamedLinkPredictor, TopKResult,
+                                quantize_table_fp8, quantize_table_int8,
+                                top_k_candidates)
 from skge_torch.trainer import TrainConfig, Trainer
 from skge_torch.training import (
     StepMetrics,
@@ -66,9 +75,11 @@ __all__ = [
     "HolE",
     "KGEModel",
     "LCWASampler",
+    "LinkPredictor",
     "MODELS",
     "MetricsLogger",
     "OPTIMIZERS",
+    "OutOfCoreTrainer",
     "PairRE",
     "QuatE",
     "RESCAL",
@@ -81,6 +92,8 @@ __all__ = [
     "SharedNegativeSampler",
     "SimplE",
     "StepMetrics",
+    "StreamedLinkPredictor",
+    "TopKResult",
     "TrainConfig",
     "TrainState",
     "Trainer",
@@ -102,7 +115,10 @@ __all__ = [
     "make_sampled_ce_step",
     "make_schedule",
     "make_selfadv_step",
+    "quantize_table_fp8",
+    "quantize_table_int8",
     "relation_categories",
     "save_checkpoint",
+    "top_k_candidates",
     "triple_classification",
 ]

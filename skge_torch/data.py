@@ -5,7 +5,9 @@ reference-format pickle (`load_dataset`, `save_dataset`), raw triple files
 (`load_tsv`, through the native loader of `native/` or in Python), the
 synthetic generator, the key encoding, the samplers' index helpers
 (`sorted_train_keys`, `type_index_arrays`, `bernoulli_probs`,
-`unigram_logits`), reciprocal relations and the filter index. They are
+`unigram_logits`), reciprocal relations, the filter index and the
+entity partition of the bucketed trainer (`greedy_entity_partition`,
+`partition_edges`). They are
 copied rather than imported because importing `skge_tpu.data` imports the
 JAX package. They give the same arrays as `skge_tpu.data` for the same
 arguments and seed.
@@ -435,6 +437,118 @@ def _lattice_kg(
     )
 
 
+def greedy_entity_partition(
+    triples: np.ndarray, n_entities: int, n_parts: int, seed: int = 0,
+    backend: str = "auto",
+) -> np.ndarray:
+    """Degree-descending greedy entity->part assignment (METIS-lite).
+
+    Entities are placed, highest degree first, on the part where they have
+    the most already-placed neighbors, subject to a +-12.5% balance cap on
+    assigned DEGREE; then up to 3 refinement sweeps move an entity to its
+    strict neighbor-majority part when the cap allows. `seed` is unused,
+    as in the JAX package (the assignment is deterministic).
+
+    `backend='auto'` runs the native C++ implementation
+    (`native/src/partitioner.cpp`, bit-identical output) when g++ can build
+    it, else this NumPy+Python reference; 'python' / 'native' force one.
+    Returns (n_entities,) int32 part ids.
+    """
+    if backend not in ("auto", "python", "native"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend != "python":
+        from skge_torch.native import greedy_partition
+
+        out = greedy_partition(triples, n_entities, n_parts)
+        if out is not None:
+            return out
+        if backend == "native":
+            raise RuntimeError("native partitioner unavailable (no toolchain)")
+    t = np.asarray(triples)
+    deg = np.bincount(t[:, 0], minlength=n_entities) + np.bincount(
+        t[:, 1], minlength=n_entities
+    )
+    # adjacency in CSR form over the undirected entity graph
+    src = np.concatenate([t[:, 0], t[:, 1]])
+    dst = np.concatenate([t[:, 1], t[:, 0]])
+    order_e = np.argsort(src, kind="stable")
+    src, dst = src[order_e], dst[order_e]
+    starts = np.searchsorted(src, np.arange(n_entities))
+    ends = np.searchsorted(src, np.arange(n_entities) + 1)
+
+    part = np.full(n_entities, -1, np.int32)
+    load = np.zeros(n_parts, np.int64)
+    cap = max(1.0, deg.sum() / n_parts * 1.125)
+    for e in np.argsort(-deg, kind="stable"):
+        nbr_parts = part[dst[starts[e] : ends[e]]]
+        nbr_parts = nbr_parts[nbr_parts >= 0]
+        open_parts = load + deg[e] <= cap
+        if not open_parts.any():
+            open_parts[:] = True  # all full: fall back to least-loaded
+        score = np.zeros(n_parts, np.int64)
+        if nbr_parts.size:
+            np.add.at(score, nbr_parts, 1)
+        score = np.where(open_parts, score, -1)
+        best = score.max()
+        cands = np.flatnonzero(score == best)
+        p = cands[np.argmin(load[cands])] if cands.size > 1 else cands[0]
+        part[e] = p
+        load[p] += deg[e]
+
+    for _ in range(3):
+        moved = 0
+        for e in range(n_entities):
+            nbrs = part[dst[starts[e] : ends[e]]]
+            if nbrs.size == 0:
+                continue
+            tally = np.bincount(nbrs, minlength=n_parts)
+            p_new = int(np.argmax(tally))
+            p_old = part[e]
+            if p_new == p_old or tally[p_new] <= tally[p_old]:
+                continue
+            if load[p_new] + deg[e] > cap:
+                continue
+            part[e] = p_new
+            load[p_old] -= deg[e]
+            load[p_new] += deg[e]
+            moved += 1
+        if moved == 0:
+            break
+    return part
+
+
+def partition_edges(
+    triples: np.ndarray, entity_part: np.ndarray, n_parts: int
+):
+    """Group triples by their SUBJECT's part, padded to equal length.
+
+    Returns (batches, mask, stats): batches (P, L, 3) int32 with each part's
+    triples padded by repeating its first row; mask (P, L) float32 zeroing
+    the padding; stats with the per-part counts, their balance and the
+    fraction of triples whose object lies in the subject's part.
+    """
+    t = np.asarray(triples, np.int32)
+    owner = entity_part[t[:, 0]]
+    counts = np.bincount(owner, minlength=n_parts)
+    length = int(counts.max())
+    batches = np.zeros((n_parts, length, 3), np.int32)
+    mask = np.zeros((n_parts, length), np.float32)
+    for p in range(n_parts):
+        rows = t[owner == p]
+        if rows.shape[0] == 0:
+            continue
+        batches[p, : rows.shape[0]] = rows
+        batches[p, rows.shape[0] :] = rows[0]
+        mask[p, : rows.shape[0]] = 1.0
+    obj_local = float(np.mean(entity_part[t[:, 1]] == owner))
+    stats = {
+        "counts": counts,
+        "balance": float(counts.min() / max(1, counts.max())),
+        "object_locality": obj_local,
+    }
+    return batches, mask, stats
+
+
 def encode_keys_np(triples: np.ndarray, n_entities: int, n_relations: int):
     t = triples.astype(np.int64)
     return (t[..., 0] * n_entities + t[..., 1]) * n_relations + t[..., 2]
@@ -488,21 +602,32 @@ def bernoulli_probs(triples: np.ndarray, n_relations: int) -> np.ndarray:
     return probs
 
 
+def _group_unique(key_ent: np.ndarray, key_rel: np.ndarray, vals: np.ndarray):
+    """{(key_ent, key_rel): sorted unique int32 vals}, sorted in NumPy."""
+    if key_ent.size == 0:
+        return {}
+    width = int(key_rel.max()) + 1
+    keys = key_ent * width + key_rel
+    order = np.lexsort((vals, keys))
+    keys, vals = keys[order], vals[order]
+    keep = np.ones(keys.size, bool)
+    keep[1:] = (keys[1:] != keys[:-1]) | (vals[1:] != vals[:-1])
+    keys, vals = keys[keep], vals[keep].astype(np.int32)
+    starts = np.flatnonzero(np.concatenate([[True], keys[1:] != keys[:-1]]))
+    groups = np.split(vals, starts[1:])
+    ents, rels = np.divmod(keys[starts], width)
+    return {(e, r): g for e, r, g in zip(ents.tolist(), rels.tolist(), groups)}
+
+
 def true_triple_index(triples: np.ndarray):
     """Known-true lookup for filtered evaluation.
 
     Returns dicts: (s, p) -> sorted int32 array of true objects, and
     (o, p) -> sorted int32 array of true subjects.
     """
-    sp_o: Dict[Tuple[int, int], list] = {}
-    op_s: Dict[Tuple[int, int], list] = {}
-    for s, o, p in triples:
-        sp_o.setdefault((int(s), int(p)), []).append(int(o))
-        op_s.setdefault((int(o), int(p)), []).append(int(s))
-    return (
-        {k: np.unique(v).astype(np.int32) for k, v in sp_o.items()},
-        {k: np.unique(v).astype(np.int32) for k, v in op_s.items()},
-    )
+    t = np.asarray(triples, np.int64).reshape(-1, 3)
+    return (_group_unique(t[:, 0], t[:, 2], t[:, 1]),
+            _group_unique(t[:, 1], t[:, 2], t[:, 0]))
 
 
 def unigram_logits(

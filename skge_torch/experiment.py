@@ -8,9 +8,15 @@ and a final test evaluation.
 The flags and their defaults are the JAX package's. It runs on the GPU;
 `--cpu` selects the CPU, and without a GPU and without `--cpu` it exits
 with an error. ConvE trains on reciprocal relations whether or not
-`--reciprocal` is given, as in the JAX package. `--trainer
-partitioned|outofcore`, which the port does not have yet, exits with a
-message that names it.
+`--reciprocal` is given, as in the JAX package.
+
+`--trainer outofcore --parts P` trains with `outofcore.OutOfCoreTrainer`
+(the entity table in pinned host memory, P partitions), validates through
+its streamed ranking every `--test-all` epochs, keeps the best params
+(and `--fout`.sharded, its checkpoint directory) and ranks the test split
+on them; the flags that trainer does not use are logged as ignored, as in
+the JAX package. `--trainer partitioned`, which the port does not have
+yet, exits with a message that names it.
 """
 
 from __future__ import annotations
@@ -35,9 +41,11 @@ from skge_torch.data import (
     synthetic_kg,
     type_index_arrays,
 )
-from skge_torch.evaluation import FilteredRankingEval, ReciprocalEvalWrapper
+from skge_torch.evaluation import (FilteredRankingEval, ReciprocalEvalWrapper,
+                                   evaluate)
 from skge_torch.models import MODELS
-from skge_torch.trainer import TrainConfig, Trainer
+from skge_torch.outofcore import OutOfCoreTrainer
+from skge_torch.trainer import TrainConfig, Trainer, make_optimizer
 from skge_torch.utils.checkpoint import save_checkpoint
 
 log = logging.getLogger("skge_torch.experiment")
@@ -71,9 +79,24 @@ def build_sampler(name: str, ds: Dataset, ntries: int = 100, k: int = 1024,
 
 
 def _refuse_unported(args: argparse.Namespace) -> None:
-    if args.trainer != "single":
-        raise SystemExit(f"--trainer {args.trainer} is not yet ported to "
-                         "skge_torch (ROADMAP.md queue 1); use --trainer single")
+    if args.trainer == "partitioned":
+        raise SystemExit("--trainer partitioned is not yet ported to skge_torch "
+                         "(ROADMAP.md queue 1); use --trainer single or outofcore")
+
+
+def _ignored_by_outofcore(args: argparse.Namespace) -> list:
+    """The flags `--trainer outofcore` does not use, as the JAX CLI lists them."""
+    ignored = []
+    if args.sampler != "shared":
+        ignored.append(f"--sampler {args.sampler} (shared pool only)")
+    if args.aggregate != "unique":
+        ignored.append(f"--aggregate {args.aggregate}")
+    if args.no_pairwise:
+        ignored.append("--no-pairwise (pointwise: single/mesh trainers only; "
+                       "CE/selfadv dominate it everywhere measured)")
+    if args.metrics:
+        ignored.append("--metrics (use trainer.metrics)")
+    return ignored
 
 
 class Experiment:
@@ -113,6 +136,14 @@ class Experiment:
             self.ds = add_reciprocal_relations(self.ds)
             log.info("reciprocal-relation augmentation (n_relations doubled to "
                      "%d, train doubled to %d)", self.ds.n_relations, len(self.ds.train))
+            if (args.trainer != "single" and args.model == "conve"
+                    and not (args.ce or args.sampled_ce)):
+                # the scale-out pools corrupt both roles; directional ConvE
+                # scores candidate objects only
+                raise SystemExit(
+                    "ConvE on --trainer partitioned/outofcore requires "
+                    "--ce or --sampled-ce (its canonical scheme); the "
+                    "pairwise pool path is --trainer single")
         kw = {}
         if args.model in RPARAM_MODELS:
             kw["rparam"] = args.rparam
@@ -132,7 +163,8 @@ class Experiment:
             kw["l1"] = not args.l2
         self.model = MODELS[args.model](
             self.ds.n_entities, self.ds.n_relations, args.ncomp, init=args.init, **kw)
-        if args.sampled_ce and args.sampler != "shared":
+        if args.sampled_ce and args.sampler != "shared" and args.trainer == "single":
+            # the out-of-core trainer always draws a pool
             raise SystemExit("--sampled-ce needs --sampler shared")
         cfg = TrainConfig(
             max_epochs=args.me,
@@ -153,11 +185,25 @@ class Experiment:
             seed=args.seed,
             metrics_jsonl=args.metrics,
         )
-        sampler = build_sampler(args.sampler, self.ds, args.ntries, args.k,
-                                modes=(1,) if args.model == "conve" else (0, 1),
-                                device=self.device)
-        self.trainer = Trainer(self.model, sampler, cfg, post_epoch=[self._callback],
-                               device=self.device)
+        self.trainer = None
+        if args.trainer == "single":
+            sampler = build_sampler(args.sampler, self.ds, args.ntries, args.k,
+                                    modes=(1,) if args.model == "conve" else (0, 1),
+                                    device=self.device)
+            self.trainer = Trainer(self.model, sampler, cfg,
+                                   post_epoch=[self._callback], device=self.device)
+        else:
+            ignored = _ignored_by_outofcore(args)
+            if ignored:
+                log.warning("--trainer %s ignores: %s", args.trainer, "; ".join(ignored))
+            # a reciprocal run has a CE loss here (both refusals above)
+            self._ooc_reciprocal = reciprocal
+            self.ooc = OutOfCoreTrainer(
+                self.model, make_optimizer(cfg), self.ds.train, n_parts=args.parts,
+                margin=cfg.margin, k=args.k, nbatches=cfg.nbatches, seed=cfg.seed,
+                loss=cfg.loss, adv_alpha=cfg.adv_alpha,
+                label_smoothing=cfg.label_smoothing, ce_directions=cfg.ce_directions,
+                device=self.device)
         # head queries of a reciprocal-trained model rank through the inverse
         # relation (ConvE routes them itself)
         self._eval_model = (ReciprocalEvalWrapper(self.model)
@@ -200,7 +246,64 @@ class Experiment:
                 return False
         return True
 
+    def _run_outofcore(self) -> dict:
+        """`--trainer outofcore`: the out-of-core trainer under the same
+        protocol (validation every `--test-all` epochs through its streamed
+        ranking, best-MRR retention with patience, the test ranking on the
+        best params), as the JAX CLI's `_run_scaleout`."""
+        args, tr = self.args, self.ooc
+
+        def eval_split(split):
+            return tr.evaluate(split, self.ds.all_triples(), batch_size=args.eval_batch,
+                               reciprocal=self._ooc_reciprocal)
+
+        best_params = None
+        t0 = timeit.default_timer()
+        chunk = args.test_all if args.test_all > 0 else args.me
+        epoch = 0
+        while epoch < args.me:
+            n = min(chunk, args.me - epoch)
+            tr.fit(epochs=n)
+            epoch += n
+            m = tr.metrics[-1]
+            log.info("epoch %d  loss=%.4f  violations=%d", epoch, m["loss"],
+                     int(m.get("nviolations", 0)))
+            if args.test_all <= 0 or len(self.ds.valid) == 0:
+                continue
+            res = eval_split(self.ds.valid)
+            log.info("  VALID epoch %d: MRR=%.4f Hits@10=%.3f MR=%.1f",
+                     epoch, res.mrr, res.hits[10], res.mean_rank)
+            if res.mrr > self.best_mrr:
+                self.best_mrr = res.mrr
+                self.best_valid = res
+                self.evals_without_improvement = 0
+                best_params = self.best_params = tr.params()  # ORIGINAL ids, host
+                if args.fout:
+                    tr.save(args.fout + ".sharded")
+            else:
+                self.evals_without_improvement += 1
+                if self.evals_without_improvement >= args.patience:
+                    log.info("early stop: no valid-MRR improvement")
+                    break
+        result = {"train_seconds": timeit.default_timer() - t0, "epochs": epoch}
+        if len(self.ds.test) > 0 and args.mode == "rank":
+            if best_params is not None:
+                # the best validation params, as the single path keeps them
+                res = evaluate(self._eval_model,
+                               {k: torch.as_tensor(v, device=self.device)
+                                for k, v in best_params.items()},
+                               self.ds.test, self.ds.all_triples(),
+                               batch_size=args.eval_batch)
+            else:
+                res = eval_split(self.ds.test)
+            result.update(res.summary())
+            log.info("TEST: MRR=%.4f (raw %.4f)  Hits@10=%.3f  MR=%.1f",
+                     res.mrr, res.mrr_raw, res.hits[10], res.mean_rank)
+        return result
+
     def run(self) -> dict:
+        if self.args.trainer == "outofcore":
+            return self._run_outofcore()
         t0 = timeit.default_timer()
         state = self.trainer.fit(self.ds.train)
         result = {"train_seconds": timeit.default_timer() - t0,
@@ -285,9 +388,10 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--trainer", default="single",
                    choices=["single", "partitioned", "outofcore"],
-                   help="only 'single' is ported")
+                   help="'single', or 'outofcore' (the entity table in host "
+                   "memory); 'partitioned' is not ported yet")
     p.add_argument("--parts", type=int, default=2,
-                   help="[outofcore, not yet ported] number of entity partitions")
+                   help="[outofcore] number of entity partitions")
     p.add_argument("--patience", type=int, default=3)
     p.add_argument("--eval-batch", dest="eval_batch", type=int, default=1024)
     p.add_argument("--metrics", default=None, help="JSONL metrics path")

@@ -1,9 +1,12 @@
-"""ctypes binding of the native triple-file loader (`native/src/tripleloader.cpp`).
+"""ctypes bindings of the native triple-file loader
+(`native/src/tripleloader.cpp`) and entity partitioner
+(`native/src/partitioner.cpp`).
 
-The C++ source is shared with the JAX package; the port compiles its own
-copy with g++ into `build/skge_torch/`, at first use, and binds it here.
-When no toolchain is available, `load_triple_files` returns None and
-`data.load_tsv` reads the files in Python.
+The C++ sources are shared with the JAX package; the port compiles its own
+library from both with g++ into `build/skge_torch/`, at first use, and
+binds it here. When no toolchain is available, `load_triple_files` and
+`greedy_partition` return None, and `data.load_tsv` and
+`data.greedy_entity_partition` run in Python.
 """
 
 from __future__ import annotations
@@ -19,8 +22,9 @@ from typing import Optional
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
-SOURCE = ROOT / "native" / "src" / "tripleloader.cpp"
-LIBRARY = ROOT / "build" / "skge_torch" / "libtripleloader.so"
+SOURCES = tuple(ROOT / "native" / "src" / f
+                for f in ("tripleloader.cpp", "partitioner.cpp"))
+LIBRARY = ROOT / "build" / "skge_torch" / "libskge_native.so"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
 _lock = threading.Lock()
@@ -33,7 +37,8 @@ def _build() -> None:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=LIBRARY.parent)
     os.close(fd)
     try:
-        subprocess.run([os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", tmp, str(SOURCE)],
+        subprocess.run([os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", tmp,
+                        *map(str, SOURCES)],
                        check=True, capture_output=True, timeout=120)
         os.replace(tmp, LIBRARY)  # atomic: a concurrent build never sees half a file
     finally:
@@ -48,7 +53,8 @@ def _ensure_lib() -> Optional[ctypes.CDLL]:
             return _lib
         try:
             if (not LIBRARY.exists()
-                    or SOURCE.stat().st_mtime > LIBRARY.stat().st_mtime):
+                    or max(f.stat().st_mtime for f in SOURCES)
+                    > LIBRARY.stat().st_mtime):
                 _build()
             lib = ctypes.CDLL(str(LIBRARY))
         except (OSError, subprocess.SubprocessError):
@@ -70,6 +76,11 @@ def _ensure_lib() -> Optional[ctypes.CDLL]:
             getattr(lib, fn).argtypes = [ctypes.c_void_p, ctypes.c_int64]
         lib.tl_free.restype = None
         lib.tl_free.argtypes = [ctypes.c_void_p]
+        lib.skge_greedy_partition.restype = ctypes.c_int
+        lib.skge_greedy_partition.argtypes = [
+            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_int32, ctypes.POINTER(ctypes.c_int32),
+        ]
         _lib = lib
         return _lib
 
@@ -110,3 +121,26 @@ def load_triple_files(paths, order: str = "spo"):
         return splits, entities, relations
     finally:
         lib.tl_free(h)
+
+
+def greedy_partition(triples, n_entities: int, n_parts: int):
+    """The native entity partitioner, bit-identical to
+    `data.greedy_entity_partition`'s Python reference: (n_entities,) int32
+    part ids, or None when the library cannot be built."""
+    lib = _ensure_lib()
+    if lib is None:
+        return None
+    t = np.ascontiguousarray(np.asarray(triples, np.int32))
+    if t.ndim != 2 or t.shape[1] != 3:
+        raise ValueError(f"triples must be (N, 3), got {t.shape}")
+    out = np.empty(int(n_entities), np.int32)
+    rc = lib.skge_greedy_partition(
+        t.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        ctypes.c_int64(t.shape[0]), ctypes.c_int32(int(n_entities)),
+        ctypes.c_int32(int(n_parts)),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+    )
+    if rc:
+        raise ValueError(f"skge_greedy_partition failed (code {rc}): check entity "
+                         "ids are in [0, n_entities)")
+    return out

@@ -35,6 +35,7 @@ from skge_torch.training import (
     make_selfadv_step,
 )
 from skge_torch.utils.checkpoint import save_checkpoint
+from skge_torch.utils.device import resolve_device
 from skge_torch.utils.metrics import MetricsLogger, StepTimer
 
 # reference module defaults (skge/base.py)
@@ -79,6 +80,17 @@ class TrainConfig:
         return dataclasses.asdict(self)
 
 
+def make_optimizer(config: TrainConfig) -> Optimizer:
+    """`config.optimizer` at `config.learning_rate`, with its lr schedule over
+    `max_epochs * nbatches` steps."""
+    return OPTIMIZERS[config.optimizer](
+        lr=config.learning_rate,
+        schedule=make_schedule(config.schedule, warmup=config.warmup,
+                               total=config.max_epochs * config.nbatches,
+                               min_scale=config.schedule_min),
+    )
+
+
 class Trainer:
     """Drives epochs of the step for `config.loss`; owns the state, the
     metrics and the callbacks. `post_epoch`: `f(trainer) -> truthy to
@@ -100,24 +112,12 @@ class Trainer:
                 "mesh training is not ported yet (ROADMAP.md queue 9)")
         if config.loss not in LOSSES:
             raise ValueError(f"unknown loss {config.loss!r}")
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: skge_torch trains on the GPU; pass "
-                               "device='cpu' to train on the CPU")
+        self.device = resolve_device(device)
         self.model = model
         self.config = config
         self.sampler = sampler
         self.post_epoch = list(post_epoch)
-        if optimizer is None:
-            optimizer = OPTIMIZERS[config.optimizer](
-                lr=config.learning_rate,
-                schedule=make_schedule(
-                    config.schedule, warmup=config.warmup,
-                    total=config.max_epochs * config.nbatches,
-                    min_scale=config.schedule_min,
-                ),
-            )
-        self.opt = optimizer
+        self.opt = make_optimizer(config) if optimizer is None else optimizer
         self.metrics = MetricsLogger(config.metrics_jsonl)
         self.state: Optional[TrainState] = None
         # per-epoch scalars for callbacks (reference attribute contract)

@@ -594,6 +594,7 @@ def sampled_ce_grads_shared(
     directions: Tuple[str, ...] = ("o", "s"),
     label_smoothing: float = 0.0,
     log_q: Optional[torch.Tensor] = None,  # (K,) proposal log-probs
+    n_domain: Optional[int] = None,  # candidate-domain size, n_e by default
 ):
     """Sampled softmax cross entropy over a shared candidate pool.
 
@@ -607,7 +608,8 @@ def sampled_ce_grads_shared(
     A pool entity equal to the label gets a -inf logit, whose gradient is
     0. With K = n_e and the pool `arange(n_e)` the correction vanishes and
     this is `ce_grads_all`. Label smoothing uses the same estimator of the
-    mean logit. The gradients are plain sums of the mean-over-valid loss:
+    mean logit. `n_domain` replaces n_e in the default uniform proposal and
+    the smoothing denominator (the out-of-core trainer's resident rows). The gradients are plain sums of the mean-over-valid loss:
     apply them with `premasked=True, combine="sum"`. Returns (loss, occ,
     g_dense); the counts only gate validity.
     """
@@ -615,7 +617,7 @@ def sampled_ce_grads_shared(
         model, params, pos, pool_idx
     )
     k = pool_idx.shape[0]
-    n_e = model.n_entities
+    n_e = model.n_entities if n_domain is None else n_domain
     ls = float(label_smoothing)
     n_valid = torch.clamp(torch.sum(mask), min=1.0)
     if log_q is None:

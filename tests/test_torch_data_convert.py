@@ -41,11 +41,16 @@ def test_true_triple_index_and_keys_equal_jax_package():
     np.testing.assert_array_equal(
         tdata.encode_keys_np(ds.train, 40, 5), jdata.encode_keys_np(ds.train, 40, 5)
     )
-    for got, want in zip(tdata.true_triple_index(ds.train),
-                         jdata.true_triple_index(ds.train)):
-        assert got.keys() == want.keys()
-        for k in want:
-            np.testing.assert_array_equal(got[k], want[k])
+    # the port groups in NumPy, the JAX package in a Python loop: duplicate
+    # triples and an empty list too
+    for triples in (ds.train, np.concatenate([ds.train, ds.train[::7]]),
+                    ds.train[:0]):
+        for got, want in zip(tdata.true_triple_index(triples),
+                             jdata.true_triple_index(triples)):
+            assert got.keys() == want.keys()
+            for k in want:
+                assert got[k].dtype == want[k].dtype
+                np.testing.assert_array_equal(got[k], want[k])
 
 
 def test_params_round_trip():

@@ -7,11 +7,14 @@ relations unasked), the factorization models with `--n3` and
 CLI's 14 choices; the `--fout` checkpoint loads in the JAX package; `--n3`
 outside the factorization models and the options not yet ported exit
 with a message that names them; without `--cpu` and a GPU the CLI exits
-instead of running on the CPU.
+instead of running on the CPU. `--trainer outofcore` trains, validates
+through the streamed ranking, keeps its best checkpoint directory and
+ranks the test split, and its CE recipe runs with reciprocal relations.
 """
 
 import ast
 import math
+import os
 
 import pytest
 import torch
@@ -59,7 +62,8 @@ def test_main_runs_each_loss(flags, tmp_path, capsys):
 
 @pytest.mark.parametrize("flags, message", [
     (["--trainer", "partitioned"], "--trainer partitioned is not yet ported"),
-    (["--trainer", "outofcore"], "--trainer outofcore is not yet ported"),
+    (["--model", "conve", "--trainer", "outofcore"],
+     "ConvE on --trainer partitioned/outofcore requires --ce or --sampled-ce"),
     (["--n3", "0.1"], "--n3 is not supported for --model hole"),
     (["--model", "transe", "--n3", "0.1"], "--n3 is not supported for --model transe"),
 ])
@@ -150,3 +154,24 @@ def test_no_gpu_without_cpu_flag_exits(monkeypatch):
     with pytest.raises(SystemExit, match="no CUDA device"):
         experiment.main([a for a in TINY if a != "--cpu"])
     assert not ran
+
+
+@pytest.mark.parametrize("flags", [
+    ["--sampler", "shared", "--k", "16", "--margin", "1.0"],
+    ["--model", "hole", "--sampled-ce", "--reciprocal", "--optimizer", "adam",
+     "--lr", "0.01", "--k", "16"],
+], ids=["margin", "sampled_ce_reciprocal"])
+def test_outofcore_trainer_from_the_cli(flags, tmp_path, capsys, caplog):
+    fout = str(tmp_path / "best.npz")
+    caplog.set_level("INFO", logger="skge_torch.experiment")
+    assert experiment.main(TINY + ["--trainer", "outofcore", "--parts", "2",
+                                   "--fout", fout] + flags) == 0
+    result = ast.literal_eval(capsys.readouterr().out.strip().splitlines()[-1])
+    assert result["epochs"] == 2
+    assert math.isfinite(result["mrr"]) and 0.0 < result["mrr"] <= 1.0
+    text = caplog.text
+    assert text.count("VALID epoch") == 2 and "TEST: MRR" in text
+    assert sorted(os.listdir(fout + ".sharded")) == [
+        "manifest.json", "part_00000.npz", "part_00001.npz", "replicated.npz"]
+    if "--sampled-ce" in flags:
+        assert "ignores: --sampler random-mode (shared pool only)" in text
