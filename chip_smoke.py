@@ -36,6 +36,9 @@ Phases, each fatal:
    shared pool's 15,520 at the factorization family's widths (D = 304 for
    ComplEx's and SimplE's 2 x 150-wide rows, D = 604 for QuatE's 4 x 150),
    and full-rank TransR's M gradient (T = 4,832, R = 1,345, D = 22,500),
+   the partitioned step's one scatter at 11a's shape (T = 16,545 into the
+   16,296 rows of the stacked shard and relation tables) and full CE's
+   (T = 14,496),
    and timed beside `index_add_` alone; its scalar path also timed at D = 151
    and at RESCAL's W counts (D = 1), beside `index_add_`;
    `segment_outer_sum` equal bit for bit to its in-order plain version and to itself in a second call, also at ranks 1, 3 and 4,
@@ -155,6 +158,30 @@ Phases, each fatal:
       top-10 overlap), `StreamedLinkPredictor` in 4 chunks of 4,096 from
       pinned memory (held to the in-core engine, bytes a batch);
    10h the JAX package's out-of-core learning gates on the card.
+11. the partitioned trainer at P=1, in this process over an NCCL group of
+   one made from a file store under build/chip_smoke/ (destroyed at the
+   end), FB15k's shape, TransE-L1 ncomp 150, k=1,024, AdaGrad 0.1, a batch
+   of 4,832, each path with the launch counts set to 0 just before it:
+   11a `PartitionedTrainer` on a fifth of the triples, one epoch of 20
+      steps with the dense and with the ragged exchange from the same
+      seed: 1 K1 a step on the 16-byte path, the host waits of an epoch
+      (the ragged exchange's exactly 2 a step more), busy time and idle
+      share, the first step's violations equal, ragged within 1e-5 of
+      dense;
+   11b one partitioned step from the initial params with 11a's
+      accumulators on the card and on the CPU (a gloo group of one), and
+      against the in-core `make_pairwise_step` on the card: within 1e-5,
+      the same violations;
+   11c self-adversarial, sampled CE on reciprocal relations and full CE
+      (DistMult), 3 epochs each on 9,664 triples: 1 K1 a step, the loss
+      falls, one step against the CPU within 1e-5, every slot too;
+   11d 11a's trainer saved, restored into a new one, one more epoch each:
+      within 1e-5;
+   11e the sharded ranking of 1,000 test triples against
+      `FilteredRankingEval` on `params()`, by the 1e-5 gap rule;
+   11f `python -m skge_torch.experiment --trainer partitioned` in this
+      process with no launch variables (a world of one), 2 epochs of 10
+      steps, validations and the test ranking, 1 K1 a step.
 
 Prints one JSON line with the kernel table, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.
@@ -204,6 +231,8 @@ from skge_torch.models import conve
 from skge_torch.models.base import ACTIVATIONS
 from skge_torch.ops import _build, cuda_outer, cuda_segment
 from skge_torch.outofcore import BucketPoolSampler, make_bucket_epoch
+from skge_torch.parallel import distributed as pdist
+from skge_torch.parallel import partitioned as ppart
 from skge_torch.training import regularized
 from skge_torch.utils.debug import assert_finite_state
 
@@ -349,6 +378,21 @@ OOC_RECIPE = ["--model", "hole", "--trainer", "outofcore", "--parts", "4",
 RANK_GAP = 1e-5  # ranks may differ only where a candidate lies this close
 # `scripts/serving_bench.py`'s defaults: random (s, p) queries from
 # default_rng(0), batch 1,024, k=10; the streamed engine 4 chunks of 4,096
+# phase 11: the partitioned trainer at P=1 over a process group of one
+# (NCCL on the card), FB15k's shape: TransE-L1 at bench.py's width, k = 1,024,
+# AdaGrad 0.1, a batch of 4,832 triples as in phase 4
+PART = SimpleNamespace(ncomp=150, k=1024, nbatches=20, margin=1.0, lr=0.1, seed=0,
+                       epochs=3)
+PART_TRIPLES = 96_628  # 11a: a fifth of the triples, 20 steps of 4,832
+PART_SMALL = 9_664     # 11c: 2 steps of 4,832 an epoch (4 on reciprocal relations)
+# the batch and cap of 11a's trainer, at which phase 3 checks K1: at P=1
+# every object is local and the cap is its floor of 1
+PART_SHAPE = SimpleNamespace(batch=4_832, cap=1)
+PART_STORE = f"{OUT}/process_group_store"
+PART_CLI = ["--synthetic-entities", "14951", "--synthetic-relations", "1345",
+            "--synthetic-train", "48314", "--model", "transe", "--sampler", "shared",
+            "--k", "1024", "--margin", "1.0", "--ncomp", "150", "--me", "2", "--nb",
+            "10", "--test-all", "1", "--trainer", "partitioned"]
 SERVE = SimpleNamespace(nqueries=59_071, batch=1024, k=10, chunk=4096,
                         cpu_queries=1024, profile_batches=5)
 # the JAX package's out-of-core learning gates (tests/test_outofcore.py),
@@ -504,7 +548,8 @@ def check_segment_sum(name, idx, grads, nrows, vector) -> float:
 
 # the 16-byte path's timed shapes, each beside the plain version
 VECTOR_TIMED = ("slice", "iid", "selfadv", "ComplEx, SimplE", "QuatE", "TransR's M",
-                "out-of-core TransE", "out-of-core RESCAL's E")
+                "out-of-core TransE", "out-of-core RESCAL's E", "partitioned TransE",
+                "partitioned full CE")
 
 
 def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
@@ -534,6 +579,12 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
     # s, o and the pool for RESCAL (its W goes through K2)
     s, rescal_w = OOC_SHAPE.part_size, padded(RESCAL_PAIRWISE.ncomp)
     t_ooc_transe, t_ooc_rescal = 3 * OOC_SHAPE.batch + OOC.k, 2 * OOC_SHAPE.batch + OOC.k
+    # the partitioned step's one scatter at P=1 (11a): the (S, F+1) shard
+    # table (s, o, the pool, and the P * (cap + k) rows of the gradient
+    # return) and the relation table, S + R rows; full CE's (11c): the
+    # s and o rows of the P * B gathered queries, and the relation rows
+    b_part = PART_SHAPE.batch
+    t_part = 3 * b_part + PART.k + PART_SHAPE.cap + PART.k
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = [  # name, T, R, D, low id, high id, storage offset, 16-byte path
         ("slice", t_slice, rows, width, 0, rows, 0, True),
@@ -545,6 +596,8 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
         ("out-of-core TransE", t_ooc_transe, 2 * s + r, width, 0, 2 * s + r, 0, True),
         ("out-of-core RESCAL's E", t_ooc_rescal, 2 * s, rescal_w, 0, 2 * s, 0, True),
         ("out-of-core RESCAL's W counts", OOC_SHAPE.batch, r, 1, 0, r, 0, False),
+        ("partitioned TransE", t_part, rows, width, 0, rows, 0, True),
+        ("partitioned full CE", 3 * b_part, rows, width, 0, rows, 0, True),
         ("ids<0 and >=R dropped", t_slice, rows, width, -50, rows + 50, 0, True),
         ("D=151 scalar path", t_slice, rows, width - 1, 0, rows, 0, False),
         ("misaligned view", t_slice, rows, width, 0, rows, 1, False),
@@ -575,7 +628,7 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
         times = time_rounds(fns, timed[name], f"segment_sum at T={t}, R={nrows}, D={d} ({name})")
         shapes.append(timed_shape(
             f"T={t}, R={nrows}, D={d}" + (", scalar path" if scalar else "")
-            + (f", {name}" if name.startswith("out-of-core") else ""), times,
+            + (f", {name}" if name.startswith(("out-of-core", "partitioned")) else ""), times,
             nbytes=8 * t + 4 * t * d + 4 * nrows * d, flops=t * d))
     return worst, shapes
 
@@ -1911,7 +1964,7 @@ def outofcore_recipe(dev, launches) -> None:
     argv = cpu + FB15K_ARGS + OOC_RECIPE + ["--fout", fout]
     t0 = time.perf_counter()
     exp = Experiment(make_parser().parse_args(argv))
-    tr = exp.ooc
+    tr = exp.scaleout
     log(f"[10f] Experiment built in {time.perf_counter() - t0:.2f} s: S = "
         f"{tr.part_size}, {len(tr.buckets)} buckets of up to {tr.bucket_len} triples")
     steps = _ooc_steps(tr)
@@ -1939,7 +1992,7 @@ def outofcore_recipe(dev, launches) -> None:
     log(f"[10f] in-core validation of {len(exp.ds.valid)} triples in "
         f"{time.perf_counter() - t0:.2f} s")
     ranks_agree("10f valid", exp.best_valid, incore, gaps)
-    again = Experiment(make_parser().parse_args(argv)).ooc.restore(fout + ".sharded")
+    again = Experiment(make_parser().parse_args(argv)).scaleout.restore(fout + ".sharded")
     reset_counts()
     tr.fit(epochs=1)
     again.fit(epochs=1)
@@ -2089,6 +2142,314 @@ def outofcore_gates(dev, launches) -> None:
         check(res.mrr > 3.0 / ds.n_entities, f"10h {loss}: MRR over random")
 
 
+def _part_group(dev) -> "pdist.ShardGroup":
+    """Phase 11's process group of one, from a file store under OUT: NCCL
+    on the card (gloo when rehearsed on the CPU)."""
+    store = os.path.abspath(PART_STORE)
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.unlink(store)
+    pdist.initialize(coordinator_address="file://" + store, num_processes=1,
+                     process_id=0, local_rank=dev.index or 0, device=dev.type)
+    group = pdist.make_shard_mesh()
+    backend = torch.distributed.get_backend()
+    log(f"[11] process group: {backend}, rank {group.rank} of {group.size}, "
+        f"device {group.device}")
+    check(backend == ("nccl" if dev.type == "cuda" else "gloo") and group.size == 1,
+          "11: an NCCL group of one on the card")
+    return group
+
+
+def _cpu_group() -> "pdist.ShardGroup":
+    """A gloo group of the same one process: the CPU side of 11b-11c."""
+    return pdist.ShardGroup(group=torch.distributed.new_group(backend="gloo"), rank=0,
+                            size=1, device=torch.device("cpu"))
+
+
+def _part_trainer(model, opt, triples, group, **kw) -> "ppart.PartitionedTrainer":
+    args = dict(margin=PART.margin, k=PART.k, nbatches=PART.nbatches, seed=PART.seed)
+    args.update(kw)
+    return ppart.PartitionedTrainer(model, opt, triples, group, **args)
+
+
+def _part_batch(tr) -> int:
+    return -(-tr._batches.shape[0] // tr.nbatches)
+
+
+def _part_step(loss, model, opt, sampler, group, cap, directions=("o", "s"), ls=0.0,
+               margin=PART.margin, alpha=1.0):
+    """The partitioned step of `loss` on `group`."""
+    if loss == "margin":
+        return ppart.make_partitioned_pairwise_step(model, opt, sampler, margin, group,
+                                                    boundary_cap=cap)
+    if loss == "selfadv":
+        return ppart.make_partitioned_selfadv_step(model, opt, sampler, margin, group,
+                                                   alpha=alpha, boundary_cap=cap)
+    if loss == "sampled_ce":
+        return ppart.make_partitioned_sampled_ce_step(model, opt, sampler, group,
+                                                      directions, ls, boundary_cap=cap)
+    return ppart.make_partitioned_ce_step(model, opt, group, directions, ls)
+
+
+def partitioned_margin(graph, dev, group, launches):
+    """11a: one epoch of the partitioned TransE-L1 trainer (20 steps of
+    4,832 triples) with the dense and with the ragged exchange, from the
+    same seed: exact K1 launches, host waits a step, the card's busy time
+    and idle share, the first step's violations equal and the params
+    within OOC_TOL. Returns (the dense trainer, its initial state, its
+    triples)."""
+    xs = graph.train[:PART_TRIPLES]
+    runs = {}
+    for exchange in ("dense", "ragged"):
+        model = TransE(graph.n_entities, graph.n_relations, PART.ncomp)
+        t0 = time.perf_counter()
+        tr = _part_trainer(model, AdaGrad(lr=PART.lr), xs, group, exchange=exchange)
+        state0 = tr._state
+        steps, batch = tr.nbatches, _part_batch(tr)
+        log(f"[11a] {exchange}: trainer built in {time.perf_counter() - t0:.2f} s: "
+            f"S = {tr.model.n_entities}, cap {tr.cap}, {steps} steps of {batch} triples")
+        check((batch, tr.cap) == (PART_SHAPE.batch, PART_SHAPE.cap),
+              f"11a: a batch of {batch} and cap {tr.cap}, as phase 3 checked K1 at")
+        run = lambda: tr._epoch(tr._state, tr._batches, tr._mask)  # noqa: E731
+        reset_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        tr._state, m = run()
+        _sync(dev)
+        dt_first = time.perf_counter() - t0
+        counts = read_counts()
+        for name in launches:
+            launches[name] += counts[name]
+        viol = m.nviolations.cpu().numpy()
+        loss = float(m.loss.sum())
+        t0 = time.perf_counter()  # the second epoch, warm (NCCL's first calls set it up)
+        tr._state, m2 = run()
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        log(f"[11a] {exchange}: first epoch of {steps} steps in {dt_first:.3f} s, the second "
+            f"in {dt:.3f} s ({1e3 * dt / steps:.3f} ms a step): first epoch's loss {loss:.6e}, "
+            f"violations {int(viol.sum())} (first step {int(viol[0])}, last "
+            f"{int(viol[-1])}), second epoch's {int(m2.nviolations.sum())}; kernel launches "
+            f"of the first {counts}")
+        check(np.isfinite(loss) and viol[0] > 0, f"11a {exchange}: finite loss, violations")
+        if dev.type == "cuda":
+            check(counts == _launches(steps, 0, steps),
+                  f"11a {exchange}: launches {counts}, want 1 K1 a step on the 16-byte path")
+        ppart.host_waits = 0
+        waits = host_waits(run) if dev.type == "cuda" else run() and 0
+        own = ppart.host_waits
+        log(f"[11a] {exchange}: {waits} synchronizing calls in an epoch of {steps} steps; "
+            f"the ragged exchange's own reads of its splits: {own}")
+        if dev.type == "cuda":
+            profile_run(run, steps, 1e3 * dt / steps, f"11a {exchange}")
+        runs[exchange] = (tr, state0, viol, waits, own)
+    dense, ragged = runs["dense"], runs["ragged"]
+    check(dense[2][0] == ragged[2][0], "11a: the first step's violations equal")
+    steps = dense[0].nbatches
+    if dev.type == "cuda":
+        check(ragged[3] - dense[3] == 2 * steps and ragged[4] == 2 * steps and dense[4] == 0,
+              f"11a: the ragged exchange waits for the host twice a step "
+              f"({ragged[3]} against {dense[3]} synchronizing calls)")
+    # the same epochs each now; params within OOC_TOL (K1 sums with atomics)
+    err = _max_diff(dense[0].params(), ragged[0].params())
+    log(f"[11a] ragged against dense after the same epochs: max |dparam| {err:.3e}")
+    check(err <= OOC_TOL, f"11a: ragged within {OOC_TOL} of dense")
+    params = dense[0].params()
+    check(all(np.isfinite(v).all() for v in params.values()), "11a: params finite")
+    check(float(np.linalg.norm(params["E"], axis=1).max()) <= 1 + 1e-5, "11a: normless1")
+    return dense[0], dense[1], xs
+
+
+def _held_to_cpu(tag, card_state, cpu_state, nv=None):
+    """Params within STEP_TOL, each optimizer slot within STEP_TOL of its
+    size, and the same violations."""
+    for name in card_state.params:
+        d = float((card_state.params[name].cpu() - cpu_state.params[name].cpu()).abs().max())
+        worst = 0.0
+        for sn, v in card_state.opt_state[name].items():
+            w = cpu_state.opt_state[name][sn].cpu()
+            worst = max(worst, float((v.cpu() - w).abs().max()) / max(1.0, float(w.abs().max())))
+        log(f"[{tag}] max|d{name}| {d:.3e}, slots within {worst:.3e} of their size")
+        check(d <= STEP_TOL and worst <= STEP_TOL, f"{tag}: {name} within {STEP_TOL}")
+    if nv is not None:
+        log(f"[{tag}] violations {nv[0]} and {nv[1]}")
+        check(nv[0] == nv[1], f"{tag}: the same violation count")
+
+
+def partitioned_against_cpu(tr, state0, dev, group, cpu_group) -> None:
+    """11b: one partitioned step from the initial params with 11a's AdaGrad
+    accumulators, the same batch and pool ids, on the card and on the CPU
+    (a gloo group of one), then against the port's in-core
+    `make_pairwise_step` on the card (at P=1 the same trajectory)."""
+    start = state0._replace(opt_state=tr._state.opt_state)
+    gen = torch.Generator().manual_seed(PART.seed + 2)
+    b = _part_batch(tr)
+    batch, mask = tr._batches[:b], torch.ones(b, device=dev)
+    pool = FixedPool(torch.randint(0, tr.model.n_entities, (PART.k,), generator=gen))
+    out = {}
+    for what, g in (("card", group), ("cpu", cpu_group)):
+        st = ppart.shard_state_partitioned(start, tr.model, g)
+        step = _part_step("margin", tr.model, tr.opt, pool, g, tr.cap)
+        t0 = time.perf_counter()
+        out[what] = step(st, batch.to(g.device), mask.to(g.device))
+        _sync(g.device)
+        log(f"[11b] the partitioned step on the {what}: {time.perf_counter() - t0:.3f} s")
+    incore = make_pairwise_step(tr.model, tr.opt, pool, PART.margin, aggregate="dense_pallas")(
+        _state_on(start, dev), batch, mask)
+    nv = {k: int(v[1].nviolations) for k, v in (*out.items(), ("in-core", incore))}
+    _held_to_cpu("11b card vs cpu", out["card"][0], out["cpu"][0], (nv["card"], nv["cpu"]))
+    _held_to_cpu("11b partitioned vs in-core", out["card"][0], incore[0],
+                 (nv["card"], nv["in-core"]))
+
+
+def partitioned_losses(graph, dev, group, cpu_group, launches) -> None:
+    """11c: self-adversarial, sampled CE on reciprocal relations and full CE
+    (DistMult), 3 epochs each on 9,664 triples: exact K1 launches, the loss
+    falls, and one step on the card against the CPU from the initial params
+    with the trained optimizer state."""
+    xs = graph.train[:PART_SMALL]
+    rec = add_reciprocal_relations(dataclasses.replace(graph, train=xs))
+    e, r = graph.n_entities, graph.n_relations
+    configs = (  # tag, model, optimizer, triples, nbatches, trainer keywords
+        ("selfadv", TransE(e, r, PART.ncomp, l1=False), AdaGrad(lr=PART.lr), xs, 2,
+         dict(loss="selfadv", margin=3.0, adv_alpha=2.0)),
+        ("sampled CE, reciprocal", DistMult(e, 2 * r, PART.ncomp), Adam(lr=1e-2),
+         rec.train, 4, dict(loss="sampled_ce", reciprocal=True, label_smoothing=0.1)),
+        ("full CE", DistMult(e, r, PART.ncomp), Adam(lr=1e-2), xs, 2,
+         dict(loss="ce", label_smoothing=0.1)),
+    )
+    for tag, model, opt, triples, nb, kw in configs:
+        tr = _part_trainer(model, opt, triples, group, nbatches=nb, **kw)
+        state0 = tr._state
+        steps = PART.epochs * tr.nbatches
+        check(_part_batch(tr) == PART_SHAPE.batch, f"11c {tag}: a batch of {PART_SHAPE.batch}")
+        reset_counts()
+        t0 = time.perf_counter()
+        tr.fit(PART.epochs)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        for name in launches:
+            launches[name] += counts[name]
+        losses = [m["loss"] for m in tr.metrics]
+        log(f"[11c] {tag}: {steps} steps in {dt:.3f} s ({1e3 * dt / steps:.3f} ms a step), "
+            f"epoch losses {', '.join(f'{x:.6e}' for x in losses)}; kernel launches {counts}")
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"11c {tag}: the loss falls")
+        if dev.type == "cuda":
+            check(counts == _launches(steps, 0, steps),
+                  f"11c {tag}: launches {counts}, want 1 K1 a step on the 16-byte path")
+        start = state0._replace(opt_state=tr._state.opt_state)
+        gen = torch.Generator().manual_seed(PART.seed + 3)
+        b = _part_batch(tr)
+        batch, mask = tr._batches[:b], torch.ones(b, device=dev)
+        pool = FixedPool(torch.randint(0, model.n_entities, (PART.k,), generator=gen))
+        loss = kw["loss"]
+        dirs = ("o",) if kw.get("reciprocal") else ("o", "s")
+        args = dict(directions=dirs, ls=kw.get("label_smoothing", 0.0),
+                    margin=kw.get("margin", PART.margin), alpha=kw.get("adv_alpha", 1.0))
+        got = {}
+        for what, g in (("card", group), ("cpu", cpu_group)):
+            step = _part_step(loss, tr.model, opt, pool, g, min(tr.cap, b), **args)
+            st = ppart.shard_state_partitioned(start, tr.model, g)
+            got[what] = step(st, batch.to(g.device), mask.to(g.device))[0]
+        _held_to_cpu(f"11c {tag} card vs cpu", got["card"], got["cpu"])
+
+
+def partitioned_resume(tr, xs, dev, group, launches) -> None:
+    """11d: 11a's dense trainer saved, one more epoch, against a new
+    trainer restored from the directory and fitted one epoch."""
+    d = f"{OUT}/11d.sharded"
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    tr.save(d)
+    t_save = time.perf_counter() - t0
+    again = _part_trainer(TransE(tr.model.n_entities, tr.model.n_relations, PART.ncomp),
+                          AdaGrad(lr=PART.lr), xs, group)
+    t0 = time.perf_counter()
+    again.restore(d)
+    t_restore = time.perf_counter() - t0
+    reset_counts()
+    tr.fit(1)
+    again.fit(1)
+    counts = read_counts()
+    for name in launches:
+        launches[name] += counts[name]
+    err = _max_diff(tr.params(), again.params())
+    log(f"[11d] saved in {t_save:.3f} s ({sorted(os.listdir(d))}), restored in "
+        f"{t_restore:.3f} s; one more epoch each: max |dparam| {err:.3e}")
+    check(err <= OOC_TOL, f"11d: resume within {OOC_TOL} of the uninterrupted run")
+
+
+def partitioned_ranking(graph, tr, dev) -> None:
+    """11e: the sharded filtered ranking against `FilteredRankingEval` on
+    `params()` (gathered, original ids), by phase 10f's gap rule."""
+    t0 = time.perf_counter()
+    got = tr.evaluate(graph.test, graph.all_triples())
+    _sync(dev)
+    t_sharded = time.perf_counter() - t0
+    model = tr.full_model
+    params = {k: torch.as_tensor(v, device=dev) for k, v in tr.params().items()}
+    t0 = time.perf_counter()
+    want = FilteredRankingEval(model, graph.test, graph.all_triples())(params)
+    _sync(dev)
+    log(f"[11e] {len(graph.test)} test triples: sharded ranking {t_sharded:.3f} s, "
+        f"in-core {time.perf_counter() - t0:.3f} s")
+    ranks_agree("11e", got, want, _min_gaps(model, params, graph.test, dev))
+
+
+def partitioned_cli(dev, launches) -> None:
+    """11f: `python -m skge_torch.experiment --trainer partitioned` in this
+    process after phase 11's group is gone, with no launch variables set:
+    `initialize()` forms a world of one; 2 epochs of 10 steps, two sharded
+    validations and the test ranking."""
+    pdist.destroy()
+    names = ("SKGE_COORDINATOR", "SKGE_NUM_PROCESSES", "SKGE_PROCESS_ID", "MASTER_ADDR",
+             "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")
+    saved = {k: os.environ.pop(k) for k in names if k in os.environ}
+    try:
+        argv = (["--cpu"] if dev.type == "cpu" else []) + PART_CLI
+        t0 = time.perf_counter()
+        exp = Experiment(make_parser().parse_args(argv))
+        check(torch.distributed.get_world_size() == 1 and exp.group.size == 1,
+              "11f: initialize() formed a world of one")
+        log(f"[11f] Experiment built in {time.perf_counter() - t0:.2f} s on "
+            f"{exp.group.device} ({torch.distributed.get_backend()}), launch variables "
+            f"unset: {sorted(saved) or 'none were set'}")
+        steps = exp.args.me * exp.scaleout.nbatches
+        reset_counts()
+        t0 = time.perf_counter()
+        result = exp.run()
+        _sync(dev)
+        counts = read_counts()
+        for name in launches:
+            launches[name] += counts[name]
+        log(f"[11f] run in {time.perf_counter() - t0:.2f} s (train "
+            f"{result['train_seconds']:.2f} s, {steps} steps): kernel launches {counts}; "
+            "test " + json.dumps({k: round(v, 6) for k, v in result.items()}))
+        check(np.isfinite(result["mrr"]) and 0 < result["mrr"] <= 1, "11f: finite test MRR")
+        if dev.type == "cuda":
+            check(counts == _launches(steps, 0, steps), f"11f: launches {counts}")
+    finally:
+        pdist.destroy()
+        os.environ.update(saved)
+
+
+def partitioned(graph, dev, launches) -> None:
+    """Phase 11, the partitioned trainer at P=1; the process group is
+    destroyed at the end whatever happens."""
+    try:
+        group = _part_group(dev)
+        cpu_group = _cpu_group()
+        tr, state0, xs = partitioned_margin(graph, dev, group, launches)
+        partitioned_against_cpu(tr, state0, dev, group, cpu_group)
+        partitioned_losses(graph, dev, group, cpu_group, launches)
+        partitioned_resume(tr, xs, dev, group, launches)
+        partitioned_ranking(graph, tr, dev)
+    finally:
+        pdist.destroy()
+    partitioned_cli(dev, launches)
+
+
 def main(argv) -> int:
     if argv not in ([], ["--kernel-times"]):
         print("usage: python3 chip_smoke.py [--kernel-times]", file=sys.stderr)
@@ -2164,6 +2525,8 @@ def main(argv) -> int:
     serving(fb15k, ooc.params(), dev)
     t_10g = time.perf_counter()
     outofcore_gates(dev, launches)
+    t_10 = time.perf_counter()
+    partitioned(fb15k, dev, launches)
     t_end = time.perf_counter()
     log(f"[time] phases 1-2 {t_build - t0:.1f} s, 3 {t_kernels - t_build:.1f} s, "
         f"4 {t_train - t_kernels:.1f} s (graphs included), 5-6 {t_eval - t_train:.1f} s, "
@@ -2171,9 +2534,10 @@ def main(argv) -> int:
         f"8 {t_8d - t_5e:.1f} s (8a {t_8a - t_5e:.1f}, 8b {t_8b - t_8a:.1f}, "
         f"8c {t_8c - t_8b:.1f}, 8d {t_8d - t_8c:.1f}), 9 {t_9 - t_8d:.1f} s "
         f"(9a {t_9a - t_8d:.1f}, 9b {t_9b - t_9a:.1f}, 9c {t_9c - t_9b:.1f}, "
-        f"9d {t_9 - t_9c:.1f}), 10 {t_end - t_9:.1f} s (10a-b {t_10a - t_9:.1f}, "
+        f"9d {t_9 - t_9c:.1f}), 10 {t_10 - t_9:.1f} s (10a-b {t_10a - t_9:.1f}, "
         f"10c {t_10c - t_10a:.1f}, 10d {t_10d - t_10c:.1f}, 10e {t_10e - t_10d:.1f}, "
-        f"10f {t_10f - t_10e:.1f}, 10g {t_10g - t_10f:.1f}, 10h {t_end - t_10g:.1f})")
+        f"10f {t_10f - t_10e:.1f}, 10g {t_10g - t_10f:.1f}, 10h {t_10 - t_10g:.1f}), "
+        f"11 {t_end - t_10:.1f} s")
     # each kernel at the TransE or RESCAL slice's shape, its other timed
     # shapes under "shapes"
     log(json.dumps({"kernels": [{

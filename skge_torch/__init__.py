@@ -19,7 +19,10 @@ over a table on the device (`LinkPredictor`, int8/fp8/bfloat16 tables) or
 streamed from pinned host memory (`StreamedLinkPredictor`). The
 out-of-core trainer (`OutOfCoreTrainer`, `--trainer outofcore`) keeps the
 entity table in pinned host memory and trains PyTorch-BigGraph-style
-buckets of partitions on the device. The gradient scatters are
+buckets of partitions on the device. The partitioned trainer
+(`PartitionedTrainer`, `--trainer partitioned`) splits the entity table
+over the processes of a `torch.distributed` group, one shard each (NCCL on
+the cards, gloo on the CPU). The gradient scatters are
 hand-written CUDA kernels (`skge_torch.ops.cuda_segment`, and
 `skge_torch.ops.cuda_outer` for RESCAL's factored shared-pool W gradient).
 
@@ -36,6 +39,7 @@ from skge_torch.models import (ERMLP, MODELS, RESCAL, ComplEx, ConvE, DistMult,
 from skge_torch.optim import (OPTIMIZERS, SCHEDULES, SGD, AdaGrad, Adam,
                               WarmupCosine, WarmupLinear, make_schedule)
 from skge_torch.outofcore import OutOfCoreTrainer
+from skge_torch.parallel.partitioned import PartitionedTrainer
 from skge_torch.sampling import (SAMPLERS, BernoulliSampler, CorruptedSampler,
                                  LCWASampler, RandomModeSampler,
                                  SharedNegativeSampler)
@@ -80,6 +84,7 @@ __all__ = [
     "MetricsLogger",
     "OPTIMIZERS",
     "OutOfCoreTrainer",
+    "PartitionedTrainer",
     "PairRE",
     "QuatE",
     "RESCAL",

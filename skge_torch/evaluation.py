@@ -9,7 +9,12 @@ ranks the target at 1 + #greater + #equal/2; `ties='optimistic'` at
 
 The all-entity sweep is the model's `score_all_o/s`. The host builds, once
 per eval set, a flat (row, entity) list of known-true pairs per test batch,
-and the device writes -inf at those pairs. `RankingResult` splits the
+and the device writes -inf at those pairs. `candidate_mask` leaves entities
+out of the candidates (the partitioned relabeling's padding rows). With a
+`group` (`parallel.distributed.ShardGroup`) the entity table is row-sharded
+over its ranks: each rank scores only its own candidate columns and the
+greater and equal counts are summed over the ranks, the ranks of the
+gathered table. `RankingResult` splits the
 metrics by direction, relation and relation category
 (`relation_categories`); `ReciprocalEvalWrapper` ranks a model trained on
 reciprocal relations through its inverse relations.
@@ -137,30 +142,44 @@ def _filter_pairs(batch: np.ndarray, index: dict, direction: str):
     )
 
 
+def _rank_of(greater, equal, ties, self_included):
+    if ties == "optimistic":
+        return (1 + greater).to(torch.float32)
+    if self_included:
+        equal = equal - 1
+    return (1 + greater + torch.clamp(equal, min=0) * 0.5).to(torch.float32)
+
+
+def _counts(scores, tgt, frows, fents):
+    """(greater, equal) of `scores` against `tgt`, raw and with the
+    known-true pairs (frows, fents) at -inf: a (4, B) int64 stack."""
+    b = scores.shape[0]
+    keep = frows < b
+    filt = scores.clone()
+    filt[frows[keep], fents[keep]] = NEG_INF
+    return torch.stack([torch.sum(scores > tgt[:, None], dim=1),
+                        torch.sum(scores == tgt[:, None], dim=1),
+                        torch.sum(filt > tgt[:, None], dim=1),
+                        torch.sum(filt == tgt[:, None], dim=1)])
+
+
 def _ranks(scores, target, frows, fents, ties):
     """(raw, filtered) float32 ranks of `target` in each row of `scores`."""
     b = scores.shape[0]
     tgt = scores[torch.arange(b, device=scores.device), target]
-
-    def rank_of(sc, self_included):
-        greater = torch.sum(sc > tgt[:, None], dim=1)
-        if ties == "optimistic":
-            return (1 + greater).to(torch.float32)
-        equal = torch.sum(sc == tgt[:, None], dim=1)
-        if self_included:
-            equal = equal - 1
-        return (1 + greater + torch.clamp(equal, min=0) * 0.5).to(torch.float32)
-
-    raw = rank_of(scores, True)
-    keep = frows < b
-    filt_scores = scores.clone()
-    filt_scores[frows[keep], fents[keep]] = NEG_INF
-    return raw, rank_of(filt_scores, False)
+    g, e, gf, ef = _counts(scores, tgt, frows, fents)
+    return _rank_of(g, e, ties, True), _rank_of(gf, ef, ties, False)
 
 
 class FilteredRankingEval:
     """Precomputes filter indices once; evaluates any params snapshot on
-    the device the params live on."""
+    the device the params live on.
+
+    `candidate_mask` ((n_e,) bool): the entities that may compete (targets
+    are always among them). `group`: the entity table is row-sharded over
+    the group's ranks (rank r holds rows [r*S, (r+1)*S) in `params`), and
+    every rank calls the evaluator with the same test set.
+    """
 
     def __init__(
         self,
@@ -170,11 +189,16 @@ class FilteredRankingEval:
         batch_size: int = 1024,
         hits_at: Sequence[int] = (1, 3, 10),
         ties: str = "mean",
+        group=None,
+        candidate_mask: Optional[np.ndarray] = None,
     ):
         if ties not in ("mean", "optimistic"):
             raise ValueError(f"ties must be 'mean' or 'optimistic', got {ties!r}")
         self.model = model
         self.ties = ties
+        self.group = group
+        self.candidate_mask = (None if candidate_mask is None
+                               else np.asarray(candidate_mask, bool))
         self.hits_at = tuple(hits_at)
         self.batch_size = int(min(batch_size, max(1, len(test))))
         self.test = np.asarray(test, np.int32)
@@ -197,27 +221,100 @@ class FilteredRankingEval:
             for direction in ("o", "s")
         }
 
+    def _sharded_scorer(self, params: Params):
+        """(direction, batch) -> (this rank's (B, S) scores, the target
+        ids), each query's rows fetched from their owners. A reciprocal
+        model asks head queries (o, p) as tail queries of the inverse
+        relation."""
+        group = self.group
+        model, inv = self.model, None
+        if isinstance(model, ReciprocalEvalWrapper):
+            model = model.model
+            half = model.n_relations // 2
+            inv = lambda p: torch.where(p < half, p + half, p - half)  # noqa: E731
+        elif getattr(model, "reciprocal", False):
+            inv = model._inv
+        slots = model.slot_spec()
+        epname = next(pn for _, pn, r in slots if r == "s")
+        table = params[epname]
+        s_rows = table.shape[0]
+        lo = group.rank * s_rows
+        dense = model.dense_params(params)
+
+        def ent_rows(ids):  # owners answer, one all-reduce
+            local = ids - lo
+            own = (local >= 0) & (local < s_rows)
+            rows = table[torch.clamp(local, 0, s_rows - 1)]
+            return group.all_reduce(torch.where(
+                own.reshape(own.shape + (1,) * (rows.dim() - 1)), rows, 0))
+
+        def score(d, batch):
+            s, o, p = batch[:, 0], batch[:, 1], batch[:, 2]
+            if d == "o":
+                idx, mode, target = {"s": s, "o": o, "p": p}, 1, o
+            elif inv is not None:
+                idx, mode, target = {"s": o, "o": s, "p": inv(p)}, 1, s
+            else:
+                idx, mode, target = {"s": s, "o": o, "p": p}, 0, s
+            need = {"p", "s" if mode == 1 else "o"}
+            rows = {slot: (ent_rows(idx[role]) if pn == epname else params[pn][idx[role]])
+                    for slot, pn, role in slots if role in need}
+            return model.score_pool(rows, table, dense, mode), target
+
+        return score, lo, s_rows
+
+    def _sharded_ranks(self, score, d, batch, lo, s_rows, cmask, frows, fents):
+        """Ranks from this rank's candidate columns: the target's score from
+        its owner, then the greater and equal counts summed over ranks."""
+        scores, target = score(d, batch)
+        if cmask is not None:
+            scores = torch.where(cmask[None, :], scores, NEG_INF)
+        b = scores.shape[0]
+        local = target - lo
+        own = (local >= 0) & (local < s_rows)
+        tgt = self.group.all_reduce(torch.where(
+            own, scores[torch.arange(b, device=scores.device),
+                        torch.clamp(local, 0, s_rows - 1)], 0))
+        fl = fents - lo
+        keep = (fl >= 0) & (fl < s_rows)
+        counts = self.group.all_reduce(_counts(
+            scores, tgt, torch.where(keep, frows, b), torch.clamp(fl, 0, s_rows - 1)))
+        g, e, gf, ef = counts
+        return _rank_of(g, e, self.ties, True), _rank_of(gf, ef, self.ties, False)
+
     @torch.no_grad()
     def __call__(self, params: Params) -> RankingResult:
         device = next(iter(params.values())).device
         n = len(self.test)
         ranks = {d: np.zeros(n, np.float64) for d in ("o", "s")}
         ranks_raw = {d: np.zeros(n, np.float64) for d in ("o", "s")}
+        cmask = (None if self.candidate_mask is None
+                 else torch.as_tensor(self.candidate_mask, device=device))
+        if self.group is not None:
+            score, lo, s_rows = self._sharded_scorer(params)
+            if cmask is not None:
+                cmask = cmask[lo:lo + s_rows]
         pos = 0
         for b in range(self.n_batches):
             batch = torch.as_tensor(self._batches[b], dtype=torch.int64, device=device)
             s, o, p = batch[:, 0], batch[:, 1], batch[:, 2]
             nvalid = int(self._valid[b].sum())
             for d in ("o", "s"):
-                if d == "o":
-                    scores, target = self.model.score_all_o(params, s, p), o
-                else:
-                    scores, target = self.model.score_all_s(params, o, p), s
                 frows, fents = (
                     torch.as_tensor(a, dtype=torch.int64, device=device)
                     for a in self._pairs[d][b]
                 )
-                raw, filt = _ranks(scores, target, frows, fents, self.ties)
+                if self.group is None:
+                    if d == "o":
+                        scores, target = self.model.score_all_o(params, s, p), o
+                    else:
+                        scores, target = self.model.score_all_s(params, o, p), s
+                    if cmask is not None:
+                        scores = torch.where(cmask[None, :], scores, NEG_INF)
+                    raw, filt = _ranks(scores, target, frows, fents, self.ties)
+                else:
+                    raw, filt = self._sharded_ranks(score, d, batch, lo, s_rows,
+                                                    cmask, frows, fents)
                 ranks_raw[d][pos : pos + nvalid] = raw.cpu().numpy()[:nvalid]
                 ranks[d][pos : pos + nvalid] = filt.cpu().numpy()[:nvalid]
             pos += nvalid

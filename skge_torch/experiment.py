@@ -15,8 +15,12 @@ with an error. ConvE trains on reciprocal relations whether or not
 its streamed ranking every `--test-all` epochs, keeps the best params
 (and `--fout`.sharded, its checkpoint directory) and ranks the test split
 on them; the flags that trainer does not use are logged as ignored, as in
-the JAX package. `--trainer partitioned`, which the port does not have
-yet, exits with a message that names it.
+the JAX package. `--trainer partitioned` trains with
+`parallel.partitioned.PartitionedTrainer`, one process per shard: the
+process group is joined (`parallel.distributed.initialize`, from the
+SKGE_* or torchrun variables, a world of one without them) before any
+work on the device, over NCCL on `cuda:LOCAL_RANK` or, with `--cpu`, over
+gloo; validation and the test ranking run on the sharded table.
 """
 
 from __future__ import annotations
@@ -45,6 +49,8 @@ from skge_torch.evaluation import (FilteredRankingEval, ReciprocalEvalWrapper,
                                    evaluate)
 from skge_torch.models import MODELS
 from skge_torch.outofcore import OutOfCoreTrainer
+from skge_torch.parallel.distributed import initialize, make_shard_mesh
+from skge_torch.parallel.partitioned import PartitionedTrainer
 from skge_torch.trainer import TrainConfig, Trainer, make_optimizer
 from skge_torch.utils.checkpoint import save_checkpoint
 
@@ -78,14 +84,9 @@ def build_sampler(name: str, ds: Dataset, ntries: int = 100, k: int = 1024,
     raise ValueError(f"unknown sampler {name!r}")
 
 
-def _refuse_unported(args: argparse.Namespace) -> None:
-    if args.trainer == "partitioned":
-        raise SystemExit("--trainer partitioned is not yet ported to skge_torch "
-                         "(ROADMAP.md queue 1); use --trainer single or outofcore")
-
-
-def _ignored_by_outofcore(args: argparse.Namespace) -> list:
-    """The flags `--trainer outofcore` does not use, as the JAX CLI lists them."""
+def _ignored_by_scaleout(args: argparse.Namespace) -> list:
+    """The flags the partitioned and out-of-core trainers do not use, as
+    the JAX CLI lists them."""
     ignored = []
     if args.sampler != "shared":
         ignored.append(f"--sampler {args.sampler} (shared pool only)")
@@ -103,12 +104,18 @@ class Experiment:
     """Train + periodically validate + keep best params + final test eval."""
 
     def __init__(self, args: argparse.Namespace):
-        _refuse_unported(args)
         self.args = args
         if not args.cpu and not torch.cuda.is_available():
             raise SystemExit("error: no CUDA device; skge_torch.experiment runs "
                              "on the GPU, pass --cpu to run on the CPU")
         self.device = torch.device("cpu" if args.cpu else "cuda")
+        self.group = None
+        if args.trainer == "partitioned":
+            # before any work on the device: this process's card is the
+            # group's (cuda:LOCAL_RANK)
+            initialize(device=self.device)
+            self.group = make_shard_mesh()
+            self.device = self.group.device
         if args.tsv:
             self.ds = load_tsv(*args.tsv, order=args.tsv_order)
         elif args.fin:
@@ -193,12 +200,19 @@ class Experiment:
             self.trainer = Trainer(self.model, sampler, cfg,
                                    post_epoch=[self._callback], device=self.device)
         else:
-            ignored = _ignored_by_outofcore(args)
+            ignored = _ignored_by_scaleout(args)
             if ignored:
                 log.warning("--trainer %s ignores: %s", args.trainer, "; ".join(ignored))
+        if args.trainer == "partitioned":
             # a reciprocal run has a CE loss here (both refusals above)
+            self.scaleout = PartitionedTrainer(
+                self.model, make_optimizer(cfg), self.ds.train, self.group,
+                margin=cfg.margin, k=args.k, nbatches=cfg.nbatches, seed=cfg.seed,
+                loss=cfg.loss, adv_alpha=cfg.adv_alpha, reciprocal=reciprocal,
+                label_smoothing=cfg.label_smoothing)
+        elif args.trainer == "outofcore":
             self._ooc_reciprocal = reciprocal
-            self.ooc = OutOfCoreTrainer(
+            self.scaleout = OutOfCoreTrainer(
                 self.model, make_optimizer(cfg), self.ds.train, n_parts=args.parts,
                 margin=cfg.margin, k=args.k, nbatches=cfg.nbatches, seed=cfg.seed,
                 loss=cfg.loss, adv_alpha=cfg.adv_alpha,
@@ -246,16 +260,19 @@ class Experiment:
                 return False
         return True
 
-    def _run_outofcore(self) -> dict:
-        """`--trainer outofcore`: the out-of-core trainer under the same
-        protocol (validation every `--test-all` epochs through its streamed
-        ranking, best-MRR retention with patience, the test ranking on the
-        best params), as the JAX CLI's `_run_scaleout`."""
-        args, tr = self.args, self.ooc
+    def _run_scaleout(self) -> dict:
+        """`--trainer partitioned|outofcore`: the scale-out trainers under
+        the same protocol (validation every `--test-all` epochs through
+        their own ranking, sharded or streamed, best-MRR retention with
+        patience, the test ranking on the best params), as the JAX CLI's
+        `_run_scaleout`."""
+        args, tr = self.args, self.scaleout
 
         def eval_split(split):
+            kw = ({} if args.trainer == "partitioned"
+                  else {"reciprocal": self._ooc_reciprocal})
             return tr.evaluate(split, self.ds.all_triples(), batch_size=args.eval_batch,
-                               reciprocal=self._ooc_reciprocal)
+                               **kw)
 
         best_params = None
         t0 = timeit.default_timer()
@@ -302,8 +319,8 @@ class Experiment:
         return result
 
     def run(self) -> dict:
-        if self.args.trainer == "outofcore":
-            return self._run_outofcore()
+        if self.args.trainer != "single":
+            return self._run_scaleout()
         t0 = timeit.default_timer()
         state = self.trainer.fit(self.ds.train)
         result = {"train_seconds": timeit.default_timer() - t0,
@@ -388,8 +405,9 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--trainer", default="single",
                    choices=["single", "partitioned", "outofcore"],
-                   help="'single', or 'outofcore' (the entity table in host "
-                   "memory); 'partitioned' is not ported yet")
+                   help="'single', 'partitioned' (the entity table split over "
+                   "the processes of a torch.distributed group) or 'outofcore' "
+                   "(the entity table in host memory)")
     p.add_argument("--parts", type=int, default=2,
                    help="[outofcore] number of entity partitions")
     p.add_argument("--patience", type=int, default=3)

@@ -189,6 +189,7 @@ def pairwise_grads_fused(
     corruptions,         # [(mode, replacement (B,), valid (B,)), ...]
     mask: torch.Tensor,  # (B,) batch validity
     margin: float,
+    gather: Optional[Callable] = None,  # (pname, idx, role) -> rows override
 ):
     """Structurally fused pairwise gradients: the reference's pairs, each
     base row gathered and the positive scored once.
@@ -215,7 +216,8 @@ def pairwise_grads_fused(
     corr = sorted(corruptions, key=lambda c: c[0])
     n_by_mode = Counter(mode for mode, _, _ in corr)  # in sorted order
     all_repl = torch.cat([repl for _, repl, _ in corr])
-    role_idx, epname, rows, crows, dense = _leaves(model, params, pos, all_repl)
+    role_idx, epname, rows, crows, dense = _leaves(model, params, pos, all_repl,
+                                                   gather, "corr")
     slot_of_mode = {mode: next(slot for slot, _, role in model.slot_spec()
                                if role == {0: "s", 1: "o"}[mode]) for mode in n_by_mode}
     ok = torch.stack([valid > 0 for _, _, valid in corr]) & (mask > 0)
@@ -255,18 +257,29 @@ def pairwise_grads_fused(
 
 
 def _leaves(model: KGEModel, params: Params, pos: torch.Tensor,
-            ent_idx: torch.Tensor):
+            ent_idx: torch.Tensor, gather: Optional[Callable] = None,
+            ent_role: str = "pool"):
     """The rows of each slot, the entity rows `ent_idx` (a shared pool, or
     every corruption's replacement) and the dense params as autograd
     leaves. Returns (role -> ids, entity param name, rows, entity rows,
-    dense)."""
+    dense).
+
+    `gather(pname, idx, role)`, when given, fetches every row instead of
+    `params[pname][idx]`: the slots' with their role ('s', 'o', 'p') and
+    the entity rows with `ent_role` ('pool' or 'corr'). The partitioned
+    step passes one that reaches rows other ranks own."""
     role_idx = {"s": pos[:, 0], "o": pos[:, 1], "p": pos[:, 2]}
     slot_by_role = {role: (slot, pname) for slot, pname, role in model.slot_spec()}
     epname = slot_by_role["s"][1]
     if epname != slot_by_role["o"][1]:
         raise ValueError("subjects and objects must share one entity table")
-    rows = _row_leaves(model, params, role_idx["s"], role_idx["o"], role_idx["p"])
-    ent_rows = params[epname][ent_idx].detach().requires_grad_()
+    if gather is None:
+        rows = _row_leaves(model, params, role_idx["s"], role_idx["o"], role_idx["p"])
+        ent_rows = params[epname][ent_idx].detach().requires_grad_()
+    else:
+        rows = {slot: gather(pname, role_idx[role], role).detach().requires_grad_()
+                for slot, pname, role in model.slot_spec()}
+        ent_rows = gather(epname, ent_idx, ent_role).detach().requires_grad_()
     return role_idx, epname, rows, ent_rows, _dense_leaves(model, params)
 
 
@@ -299,6 +312,7 @@ def pairwise_grads_shared(
     mask: torch.Tensor,       # (B,) batch validity
     margin: float,
     modes: Tuple[int, ...] = (0, 1),
+    gather: Optional[Callable] = None,  # (pname, idx, role) -> rows override
 ):
     """Shared-negative-pool pairwise gradients (PBG/DGL-KE scheme).
 
@@ -316,9 +330,10 @@ def pairwise_grads_shared(
 
     Returns (loss, nviol, occ, g_dense) with occ = {pname: (indices, grads,
     counts)}; the grads are already weighted by the violation mask.
+    `gather` as in `_leaves` (the pool's role is 'pool').
     """
     role_idx, epname, rows, pool_rows, dense = _leaves(
-        model, params, pos, pool_idx
+        model, params, pos, pool_idx, gather
     )
     af = ACTIVATIONS[model.pairwise_af][0]
     valid = (mask > 0)[:, None]
@@ -511,6 +526,7 @@ def selfadv_grads_shared(
     margin: float,
     alpha: float = 1.0,
     modes: Tuple[int, ...] = (0, 1),
+    gather: Optional[Callable] = None,  # (pname, idx, role) -> rows override
 ):
     """Shared-pool self-adversarial gradients (Sun et al. 2019, RotatE).
     Per valid positive b, with pool scores f[b, k] per corruption mode:
@@ -521,10 +537,10 @@ def selfadv_grads_shared(
 
     alpha = 0 is the unweighted mean pool logistic loss. Occurrence counts
     are element counts, as in `pointwise_grads_shared`. Returns (loss, occ,
-    g_dense).
+    g_dense). `gather` as in `_leaves`.
     """
     role_idx, epname, rows, pool_rows, dense = _leaves(
-        model, params, pos, pool_idx
+        model, params, pos, pool_idx, gather
     )
     mask = mask.to(acc_dtype(pool_rows))
 
@@ -594,6 +610,7 @@ def sampled_ce_grads_shared(
     directions: Tuple[str, ...] = ("o", "s"),
     label_smoothing: float = 0.0,
     log_q: Optional[torch.Tensor] = None,  # (K,) proposal log-probs
+    gather: Optional[Callable] = None,  # (pname, idx, role) -> rows override
     n_domain: Optional[int] = None,  # candidate-domain size, n_e by default
 ):
     """Sampled softmax cross entropy over a shared candidate pool.
@@ -611,10 +628,10 @@ def sampled_ce_grads_shared(
     mean logit. `n_domain` replaces n_e in the default uniform proposal and
     the smoothing denominator (the out-of-core trainer's resident rows). The gradients are plain sums of the mean-over-valid loss:
     apply them with `premasked=True, combine="sum"`. Returns (loss, occ,
-    g_dense); the counts only gate validity.
+    g_dense); the counts only gate validity. `gather` as in `_leaves`.
     """
     role_idx, epname, rows, pool_rows, dense = _leaves(
-        model, params, pos, pool_idx
+        model, params, pos, pool_idx, gather
     )
     k = pool_idx.shape[0]
     n_e = model.n_entities if n_domain is None else n_domain

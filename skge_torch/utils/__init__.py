@@ -1,7 +1,8 @@
 """Checkpoints, metrics and profiling of the port."""
 
 from skge_torch.utils.checkpoint import (AsyncCheckpointer, load_checkpoint,
-                                         save_checkpoint)
+                                         load_sharded_checkpoint, save_checkpoint,
+                                         save_sharded_checkpoint)
 from skge_torch.utils.metrics import MetricsLogger, StepTimer, profile_trace
 
 __all__ = [
@@ -9,6 +10,8 @@ __all__ = [
     "MetricsLogger",
     "StepTimer",
     "load_checkpoint",
+    "load_sharded_checkpoint",
     "profile_trace",
     "save_checkpoint",
+    "save_sharded_checkpoint",
 ]

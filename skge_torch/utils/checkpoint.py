@@ -20,6 +20,11 @@ is restored when the file holds one for the same device type; otherwise
 (a JAX file, or a file saved on another device type) the generator is a
 fresh one, seeded from the metadata's config seed (0 without one) and the
 step, so the draws differ from an uninterrupted run.
+
+`save_sharded_checkpoint` / `load_sharded_checkpoint` write and read the
+JAX package's per-shard directory (`manifest.json`, `replicated.npz`,
+`shard_{i:05d}.npz`) for the partitioned trainer: each rank writes and
+reads only its own rows, whatever the saving run's shard count.
 """
 
 from __future__ import annotations
@@ -178,3 +183,116 @@ def load_checkpoint(path: str, device) -> Tuple[TrainState, Dict[str, Any]]:
         step=step,
     )
     return state, meta
+
+
+def save_sharded_checkpoint(
+    dirpath: str, state: TrainState, meta: Optional[Dict[str, Any]] = None, *,
+    group, sharded: Tuple[str, ...],
+) -> None:
+    """Per-shard checkpoint in the JAX package's layout, with no full table
+    on any one process:
+
+        dirpath/manifest.json      n_shards, per-leaf row extents, meta
+        dirpath/replicated.npz     key, step, the replicated leaves and the
+                                   port's generator state (rank 0)
+        dirpath/shard_{i:05d}.npz  rank i's rows of every sharded leaf
+
+    `state` is this rank's part (`parallel.partitioned`'s placement);
+    `sharded` names the params whose rows are split over `group` (a
+    `ShardGroup`), their optimizer slots with them. The manifest is written
+    last, after every rank's shard file, and marks the checkpoint whole.
+    """
+    os.makedirs(dirpath, exist_ok=True)
+    flat = {}
+    flat.update(_flatten("params", state.params))
+    flat.update(_flatten("opt", state.opt_state))
+    is_sharded = {name: name.split(_SEP)[1] in sharded for name in flat}
+    local = {n: v for n, v in flat.items() if is_sharded[n]}
+    _write_npz_atomic(os.path.join(dirpath, f"shard_{group.rank:05d}.npz"), local)
+    group.barrier()
+    if group.rank == 0:
+        shapes, rows = {}, {}
+        for name, v in flat.items():
+            shape = list(v.shape)
+            if is_sharded[name]:
+                rows[name] = int(v.shape[0])
+                shape[0] *= group.size
+            shapes[name] = shape
+        rep = {n: v for n, v in flat.items() if not is_sharded[n]}
+        gen = state.generator
+        rep["key"] = _jax_key(gen.initial_seed())
+        rep["step"] = np.asarray(int(state.step), np.int32)
+        rep["torch_generator"] = gen.get_state().numpy()
+        rep["torch_generator_device"] = np.asarray(gen.device.type)
+        _write_npz_atomic(os.path.join(dirpath, "replicated.npz"), rep)
+        manifest = {"n_shards": group.size, "sharded_rows": rows, "shapes": shapes,
+                    "meta": meta or {}}
+        tmp = os.path.join(dirpath, "manifest.json.tmp")
+        with open(tmp, "w") as f:
+            json.dump(manifest, f)
+        os.replace(tmp, os.path.join(dirpath, "manifest.json"))
+    group.barrier()
+
+
+def load_sharded_checkpoint(
+    dirpath: str, group, sharded: Optional[Tuple[str, ...]] = None, seed: int = 0,
+) -> Tuple[TrainState, Dict[str, Any]]:
+    """(this rank's state on `group.device`, meta) from a
+    `save_sharded_checkpoint` directory of either package, whatever its
+    shard count: each sharded leaf's global rows are cut into
+    `group.size` equal ranges and this rank reads only its own, from the
+    shard files that cover it. `sharded`, when given, must match the
+    manifest. The generator state is restored when the files hold one for
+    this device type; otherwise it is fresh, seeded from `seed` and the
+    step."""
+    with open(os.path.join(dirpath, "manifest.json")) as f:
+        manifest = json.load(f)
+    with np.load(os.path.join(dirpath, "replicated.npz")) as z:
+        replicated = {k: z[k] for k in z.files}
+    step = int(replicated.pop("step"))
+    replicated.pop("key")
+    gen_state = replicated.pop("torch_generator", None)
+    gen_device = replicated.pop("torch_generator_device", None)
+    saved_rows = manifest["sharded_rows"]
+    if sharded is not None:
+        found = {n.split(_SEP)[1] for n in saved_rows}
+        if found != set(sharded):
+            raise ValueError(f"checkpoint shards {sorted(found)}, expected {sorted(sharded)}")
+    dev = group.device
+    files: Dict[int, Any] = {}
+
+    def leaf(name):
+        shape = tuple(manifest["shapes"][name])
+        if name in replicated:
+            return torch.as_tensor(np.array(replicated[name], copy=True), device=dev)
+        if shape[0] % group.size:
+            raise ValueError(f"{name}: {shape[0]} rows do not split over "
+                             f"{group.size} ranks")
+        s_new, s_old = shape[0] // group.size, saved_rows[name]
+        start, stop = group.rank * s_new, (group.rank + 1) * s_new
+        parts = []
+        for sid in range(start // s_old, (stop - 1) // s_old + 1):
+            if sid not in files:
+                files[sid] = np.load(os.path.join(dirpath, f"shard_{sid:05d}.npz"))
+            lo, hi = max(start - sid * s_old, 0), min(stop - sid * s_old, s_old)
+            parts.append(files[sid][name][lo:hi])
+        return torch.as_tensor(np.concatenate(parts), device=dev)
+
+    try:
+        tree = _unflatten({n: leaf(n) for n in sorted(manifest["shapes"])})
+    finally:
+        for z in files.values():
+            z.close()
+    generator = torch.Generator(device=dev)
+    if gen_state is not None and str(gen_device) == dev.type:
+        generator.set_state(torch.as_tensor(gen_state, dtype=torch.uint8))
+    else:
+        mixed = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]
+        generator.manual_seed(int(mixed) & ((1 << 63) - 1))
+    params = tree.get("params", {})
+    opt_state = tree.get("opt", {})
+    for name in params:  # a stateless optimizer's slots leave no member
+        opt_state.setdefault(name, {})
+    return (TrainState(params=params, opt_state=opt_state, generator=generator,
+                       step=step),
+            manifest.get("meta", {}))

@@ -5,16 +5,19 @@ and so do RotatE, TransH, TransR, PairRE and ConvE (ConvE on reciprocal
 relations unasked), the factorization models with `--n3` and
 `--synthetic-kind latent`, and ConvE's CE recipe; `--model` takes the JAX
 CLI's 14 choices; the `--fout` checkpoint loads in the JAX package; `--n3`
-outside the factorization models and the options not yet ported exit
-with a message that names them; without `--cpu` and a GPU the CLI exits
+outside the factorization models and ConvE's pairwise scale-out exit with
+a message that names them; without `--cpu` and a GPU the CLI exits
 instead of running on the CPU. `--trainer outofcore` trains, validates
 through the streamed ranking, keeps its best checkpoint directory and
 ranks the test split, and its CE recipe runs with reciprocal relations.
+`--trainer partitioned` does the same on the sharded table, in a world of
+one and in two processes joined through the SKGE_* variables.
 """
 
 import ast
 import math
 import os
+import sys
 
 import pytest
 import torch
@@ -22,6 +25,7 @@ import torch
 from skge_tpu import experiment as jexperiment
 from skge_tpu.utils.checkpoint import load_checkpoint as jload_checkpoint
 from skge_torch import experiment
+from skge_torch.parallel import distributed
 
 torch.set_num_threads(1)
 
@@ -61,15 +65,19 @@ def test_main_runs_each_loss(flags, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags, message", [
-    (["--trainer", "partitioned"], "--trainer partitioned is not yet ported"),
+    (["--model", "conve", "--trainer", "partitioned", "--cpu"],
+     "ConvE on --trainer partitioned/outofcore requires --ce or --sampled-ce"),
     (["--model", "conve", "--trainer", "outofcore"],
      "ConvE on --trainer partitioned/outofcore requires --ce or --sampled-ce"),
     (["--n3", "0.1"], "--n3 is not supported for --model hole"),
     (["--model", "transe", "--n3", "0.1"], "--n3 is not supported for --model transe"),
 ])
 def test_unported_options_exit_naming_them(flags, message):
-    with pytest.raises(SystemExit, match=message):
-        experiment.main(TINY + flags)
+    try:
+        with pytest.raises(SystemExit, match=message):
+            experiment.main(TINY + flags)
+    finally:
+        distributed.destroy()  # --trainer partitioned joined a world of one
 
 
 def test_model_choices_are_the_jax_packages():
@@ -175,3 +183,45 @@ def test_outofcore_trainer_from_the_cli(flags, tmp_path, capsys, caplog):
         "manifest.json", "part_00000.npz", "part_00001.npz", "replicated.npz"]
     if "--sampled-ce" in flags:
         assert "ignores: --sampler random-mode (shared pool only)" in text
+
+
+PARTITIONED = ["--trainer", "partitioned", "--sampler", "shared", "--k", "16"]
+
+
+def test_partitioned_trainer_from_the_cli_world_of_one(tmp_path, capsys, caplog):
+    """`--trainer partitioned --cpu` with no launch variables: a gloo world
+    of one, validation and the test ranking on the sharded table, the
+    best model's sharded checkpoint directory."""
+    fout = str(tmp_path / "best.npz")
+    caplog.set_level("INFO", logger="skge_torch.experiment")
+    try:
+        assert experiment.main(TINY + PARTITIONED + ["--fout", fout]) == 0
+    finally:
+        distributed.destroy()
+    result = ast.literal_eval(capsys.readouterr().out.strip().splitlines()[-1])
+    assert result["epochs"] == 2
+    assert math.isfinite(result["mrr"]) and 0.0 < result["mrr"] <= 1.0
+    assert caplog.text.count("VALID epoch") == 2 and "TEST: MRR" in caplog.text
+    assert sorted(os.listdir(fout + ".sharded")) == [
+        "manifest.json", "replicated.npz", "shard_00000.npz"]
+
+
+def test_partitioned_trainer_from_the_cli_two_processes(tmp_path):
+    """Two processes joined through the SKGE_* variables (a file store):
+    both finish with the same result, and each wrote its own shard."""
+    fout = str(tmp_path / "best.npz")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + os.environ.get("PYTHONPATH", "").split(os.pathsep)))
+    out = distributed.launch_local(
+        [sys.executable, "-m", "skge_torch.experiment"] + TINY + PARTITIONED
+        + ["--fout", fout], 2, 150, store_dir=str(tmp_path), env=env)
+    results = []
+    for rc, so, se in out:
+        assert rc == 0, se[-3000:]
+        results.append(ast.literal_eval(so.strip().splitlines()[-1]))
+    a, b = results
+    assert a["epochs"] == b["epochs"] == 2 and a["mrr"] == b["mrr"]
+    assert 0.0 < a["mrr"] <= 1.0
+    assert sorted(os.listdir(fout + ".sharded")) == [
+        "manifest.json", "replicated.npz", "shard_00000.npz", "shard_00001.npz"]
