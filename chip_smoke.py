@@ -182,6 +182,33 @@ Phases, each fatal:
    11f `python -m skge_torch.experiment --trainer partitioned` in this
       process with no launch variables (a world of one), 2 epochs of 10
       steps, validations and the test ranking, 1 K1 a step.
+12. the 2-D ('data', 'model') mesh at (1, 1), in this process over NCCL
+   groups of one (`parallel.mesh.make_mesh`, a file store under
+   build/chip_smoke/, destroyed at the end), FB15k's shape, ncomp 150,
+   k=1,024, AdaGrad 0.1, batches of 4,832, each path with the launch
+   counts set to 0 just before it:
+   12a `Trainer(mesh=)`, TransE-L1 on a shared pool, one epoch of 20 steps
+      on a fifth of the triples, against the in-core `Trainer` from the
+      same seed (params within 1e-5, the same violations): 1 K1 a step on
+      the 16-byte path, then the warm step's time, busy time and idle
+      share, and its host waits a step (none);
+   12b one step each of the mesh's selfadv (TransE-L2), pointwise on a
+      pool (TransE-L2), sampled CE and vocab-parallel full CE (DistMult),
+      fused iid margin (TransE-L1, 16 negatives), `sharded`'s generic iid
+      pointwise route (TransE-L1, 2 negatives) and RESCAL ncomp 100 with
+      `shard_relations` (K2): on the card against the same mesh step on
+      the CPU and against the in-core step on the card, from the initial
+      params with AdaGrad accumulators at 1, the same batch and draws,
+      within 1e-5 and the same violations, each with its exact launch
+      counts;
+   12c `make_epoch_fn(pad_to=4)` against `pad_to=1` on the card, iid
+      TransE-L1 (16 negatives), 10 steps of 4,831 triples padded to 4,832:
+      the same violations, params within 1e-5;
+   12d `LinkPredictor(mesh=)` against `LinkPredictor()` on 12a's params,
+      1,024 queries at `scripts/serving_bench.py`'s defaults, exact and
+      int8: the same top-10 ids and values; `FilteredRankingEval(mesh=)`
+      against the unsharded ranking of 1,000 test triples by the 1e-5 gap
+      rule.
 
 Prints one JSON line with the kernel table, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.
@@ -220,7 +247,7 @@ from skge_torch import (ERMLP, MODELS, RESCAL, AdaGrad, Adam, BernoulliSampler,
                         SharedNegativeSampler, TrainConfig, Trainer, TrainState,
                         TransE, init_state, load_checkpoint, make_ce_step,
                         make_epoch_fn, make_pairwise_step, make_pointwise_step,
-                        triple_classification)
+                        make_sampled_ce_step, make_selfadv_step, triple_classification)
 from skge_torch.data import (add_reciprocal_relations, bernoulli_probs,
                              latent_assign, latent_kg, latent_queries,
                              latent_scores, latent_tables, sorted_train_keys,
@@ -229,10 +256,14 @@ from skge_torch.evaluation import classification_negatives
 from skge_torch.experiment import Experiment, make_parser
 from skge_torch.models import conve
 from skge_torch.models.base import ACTIVATIONS
+from skge_torch.optim import EPS
 from skge_torch.ops import _build, cuda_outer, cuda_segment
 from skge_torch.outofcore import BucketPoolSampler, make_bucket_epoch
 from skge_torch.parallel import distributed as pdist
+from skge_torch.parallel import mesh as pmesh
 from skge_torch.parallel import partitioned as ppart
+from skge_torch.parallel import sharded as psh
+from skge_torch.parallel import shardmap_step as psm
 from skge_torch.training import regularized
 from skge_torch.utils.debug import assert_finite_state
 
@@ -393,6 +424,14 @@ PART_CLI = ["--synthetic-entities", "14951", "--synthetic-relations", "1345",
             "--synthetic-train", "48314", "--model", "transe", "--sampler", "shared",
             "--k", "1024", "--margin", "1.0", "--ncomp", "150", "--me", "2", "--nb",
             "10", "--test-all", "1", "--trainer", "partitioned"]
+# phase 12: the 2-D mesh at (1, 1) over NCCL groups of one, FB15k's shape,
+# TransE-L1 at bench.py's width, k = 1,024, AdaGrad 0.1, batches of 4,832
+MESH = SimpleNamespace(ncomp=150, k=1024, nbatches=20, margin=1.0, lr=0.1, seed=0,
+                       rescal_ncomp=100)
+MESH_TRIPLES = 96_628      # 12a: a fifth of the triples, 20 steps of 4,832
+MESH_PAD_TRIPLES = 48_310  # 12c: 10 steps of 4,831, padded to 4,832 by pad_to=4
+MESH_STORE = f"{OUT}/mesh_group_store"
+MESH_QUERIES = 1024        # 12d
 SERVE = SimpleNamespace(nqueries=59_071, batch=1024, k=10, chunk=4096,
                         cpu_queries=1024, profile_batches=5)
 # the JAX package's out-of-core learning gates (tests/test_outofcore.py),
@@ -549,7 +588,7 @@ def check_segment_sum(name, idx, grads, nrows, vector) -> float:
 # the 16-byte path's timed shapes, each beside the plain version
 VECTOR_TIMED = ("slice", "iid", "selfadv", "ComplEx, SimplE", "QuatE", "TransR's M",
                 "out-of-core TransE", "out-of-core RESCAL's E", "partitioned TransE",
-                "partitioned full CE")
+                "partitioned full CE", "RESCAL's E", "mesh iid pointwise")
 
 
 def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
@@ -585,6 +624,11 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
     # s and o rows of the P * B gathered queries, and the relation rows
     b_part = PART_SHAPE.batch
     t_part = 3 * b_part + PART.k + PART_SHAPE.cap + PART.k
+    # in-core RESCAL's E (4b, 12b: s, o and the pool); the mesh's generic
+    # iid pointwise route (12b): the batch and its 2 negatives a positive,
+    # each triple's s and o into E and its relation into R
+    t_rescal_e = 2 * _batch_size(RESCAL_PAIRWISE) + RESCAL_PAIRWISE.k
+    t_mesh_pw = 3 * 3 * _batch_size(TRANSE)
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = [  # name, T, R, D, low id, high id, storage offset, 16-byte path
         ("slice", t_slice, rows, width, 0, rows, 0, True),
@@ -598,6 +642,8 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
         ("out-of-core RESCAL's W counts", OOC_SHAPE.batch, r, 1, 0, r, 0, False),
         ("partitioned TransE", t_part, rows, width, 0, rows, 0, True),
         ("partitioned full CE", 3 * b_part, rows, width, 0, rows, 0, True),
+        ("RESCAL's E", t_rescal_e, e, rescal_w, 0, e, 0, True),
+        ("mesh iid pointwise", t_mesh_pw, rows, width, 0, rows, 0, True),
         ("ids<0 and >=R dropped", t_slice, rows, width, -50, rows + 50, 0, True),
         ("D=151 scalar path", t_slice, rows, width - 1, 0, rows, 0, False),
         ("misaligned view", t_slice, rows, width, 0, rows, 1, False),
@@ -628,7 +674,8 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
         times = time_rounds(fns, timed[name], f"segment_sum at T={t}, R={nrows}, D={d} ({name})")
         shapes.append(timed_shape(
             f"T={t}, R={nrows}, D={d}" + (", scalar path" if scalar else "")
-            + (f", {name}" if name.startswith(("out-of-core", "partitioned")) else ""), times,
+            + (f", {name}" if name.startswith(("out-of-core", "partitioned", "RESCAL",
+                                                "mesh")) else ""), times,
             nbytes=8 * t + 4 * t * d + 4 * nrows * d, flops=t * d))
     return worst, shapes
 
@@ -2450,6 +2497,324 @@ def partitioned(graph, dev, launches) -> None:
     partitioned_cli(dev, launches)
 
 
+class FixedExpanded:
+    """A sampler with only the expanded form (no `pool`, no `corruptions`):
+    the same (positives repeated, negatives, pair mask) every call."""
+
+    def __init__(self, pos, neg, pm):
+        self.out = (pos, neg, pm)
+
+    def __call__(self, generator, pos, mask):
+        return tuple(x.to(pos.device) for x in self.out)
+
+
+def _mesh_group(dev) -> "pmesh.Mesh":
+    """Phase 12's (1, 1) mesh: a world of one from a file store under OUT,
+    NCCL on the card (gloo when rehearsed on the CPU), and its two groups."""
+    store = os.path.abspath(MESH_STORE)
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.unlink(store)
+    pdist.initialize(coordinator_address="file://" + store, num_processes=1,
+                     process_id=0, local_rank=dev.index or 0, device=dev.type)
+    mesh = pmesh.make_mesh((1, 1), device=dev.type)
+    backend = torch.distributed.get_backend()
+    log(f"[12] mesh {mesh.shape} over {backend}: world rank {mesh.rank}, data rank "
+        f"{mesh.data.rank} of {mesh.data.size}, model rank {mesh.model.rank} of "
+        f"{mesh.model.size}, device {mesh.device}")
+    check(backend == ("nccl" if dev.type == "cuda" else "gloo"),
+          "12: an NCCL world of one on the card")
+    return mesh
+
+
+def _cpu_mesh() -> "pmesh.Mesh":
+    """A (1, 1) mesh of this process on the CPU (gloo groups of one): the
+    CPU side of 12b."""
+    cpu = torch.device("cpu")
+    groups = [pdist.ShardGroup(group=torch.distributed.new_group(backend="gloo"), rank=0,
+                               size=1, device=cpu) for _ in range(2)]
+    return pmesh.Mesh(shape={pmesh.DATA_AXIS: 1, pmesh.MODEL_AXIS: 1}, data=groups[0],
+                      model=groups[1], rank=0, device=cpu)
+
+
+def mesh_trainer(graph, dev, mesh, launches):
+    """12a: `Trainer(mesh=)` on TransE-L1's shared pool, one epoch of 20
+    steps, against the in-core `Trainer` from the same seed; then the warm
+    step's time, the card's busy time and its host waits. Returns the mesh
+    trainer."""
+    xs = graph.train[:MESH_TRIPLES]
+    cfg = TrainConfig(max_epochs=1, nbatches=MESH.nbatches, learning_rate=MESH.lr,
+                      margin=MESH.margin, seed=MESH.seed, aggregate="dense_pallas")
+    model = TransE(graph.n_entities, graph.n_relations, MESH.ncomp)
+    sampler = SharedNegativeSampler(graph.n_entities, k=MESH.k)
+    incore = Trainer(model, sampler, cfg, device=dev)
+    t0 = time.perf_counter()
+    incore.fit(xs)
+    _sync(dev)
+    t_incore = time.perf_counter() - t0
+    tr = Trainer(model, sampler, cfg, mesh=mesh)
+    steps = MESH.nbatches
+    reset_counts()
+    t0 = time.perf_counter()
+    tr.fit(xs)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    for name in launches:
+        launches[name] += counts[name]
+    err = max(float((tr.state.params[k] - incore.state.params[k]).abs().max())
+              for k in tr.state.params)
+    log(f"[12a] Trainer(mesh=(1, 1)): {steps} steps of {-(-len(xs) // steps)} triples in "
+        f"{dt:.3f} s (in-core Trainer {t_incore:.3f} s), loss {tr.loss:.6e}, violations "
+        f"{tr.nviolations} (in-core {incore.nviolations}); max |dparam| against in-core "
+        f"{err:.3e}; kernel launches {counts}")
+    check(err <= STEP_TOL, f"12a: Trainer(mesh=) within {STEP_TOL} of the in-core Trainer")
+    check(tr.nviolations == incore.nviolations, "12a: the same violations")
+    if dev.type == "cuda":
+        check(counts == _launches(steps, 0, steps),
+              f"12a: launches {counts}, want 1 K1 a step on the 16-byte path")
+    # the warm epoch, from the trained state, unrecorded
+    epoch = make_epoch_fn(tr.make_step(), len(xs), steps, pad_to=mesh.data.size)
+    xs_dev = torch.as_tensor(xs, dtype=torch.int64, device=dev)
+    run = lambda: epoch(tr.state, xs_dev)  # noqa: E731
+    _sync(dev)
+    t0 = time.perf_counter()
+    run()
+    _sync(dev)
+    step_ms = 1e3 * (time.perf_counter() - t0) / steps
+    waits = host_waits(run) if dev.type == "cuda" else 0
+    log(f"[12a] warm: {step_ms:.3f} ms a step, {waits / steps:g} host waits a step "
+        f"({waits} in {steps} steps)")
+    if dev.type == "cuda":
+        check(waits == 0, f"12a: {waits} host waits in an epoch, want none")
+        profile_run(run, steps, step_ms, "12a")
+    return tr
+
+
+def mesh_steps(graph, dev, mesh, cpu_mesh, launches) -> None:
+    """12b: one step of each mesh route on the card against the same step
+    on the CPU (plain versions) and against the in-core step on the card,
+    from the initial params with AdaGrad accumulators at 1, with the same
+    batch and draws; then the pointwise pool step from cold accumulators
+    (`mesh_cold_step`)."""
+    e, r = graph.n_entities, graph.n_relations
+    gen = torch.Generator().manual_seed(MESH.seed + 4)
+    b = PART_SHAPE.batch
+    batch = torch.as_tensor(graph.train, dtype=torch.int64)[
+        torch.randperm(graph.train.shape[0], generator=gen)[:b]]
+    mask = torch.ones(b)
+    pool = FixedPool(torch.randint(0, e, (MESH.k,), generator=gen))
+    cpu = torch.device("cpu")
+    iid = FixedCorruptions(make_sampler(TRANSE_IID, graph, cpu).corruptions(gen, batch, mask))
+    pos, neg, pm = RandomModeSampler(e)(gen, batch, mask)
+    expanded = FixedExpanded(pos, neg, pm)
+    ada = lambda: AdaGrad(lr=MESH.lr)  # noqa: E731
+    cases = (  # tag, model, (mesh step, in-core step), K1 and K2 launches
+        ("selfadv TransE-L2", TransE(e, r, MESH.ncomp, l1=False),
+         lambda m, o, g: psm.make_shardmap_selfadv_step(m, o, pool, 3.0, g, alpha=2.0),
+         lambda m, o: make_selfadv_step(m, o, pool, 3.0, 2.0, "dense_pallas"), 1, 0),
+        ("pointwise pool TransE-L2", TransE(e, r, MESH.ncomp, l1=False),
+         lambda m, o, g: psm.make_shardmap_pointwise_step(m, o, pool, g),
+         lambda m, o: make_pointwise_step(m, o, pool, "dense_pallas"), 1, 0),
+        ("sampled CE DistMult", DistMult(e, r, MESH.ncomp),
+         lambda m, o, g: psm.make_shardmap_sampled_ce_step(m, o, pool, g,
+                                                           label_smoothing=0.1),
+         lambda m, o: make_sampled_ce_step(m, o, pool, label_smoothing=0.1,
+                                           aggregate="dense_pallas"), 1, 0),
+        ("vocab-parallel full CE DistMult", DistMult(e, r, MESH.ncomp),
+         lambda m, o, g: psm.make_shardmap_ce_step(m, o, g, label_smoothing=0.1),
+         lambda m, o: make_ce_step(m, o, label_smoothing=0.1), 1, 0),
+        ("iid fused margin TransE-L1", TransE(e, r, MESH.ncomp),
+         lambda m, o, g: psm.make_shardmap_pairwise_step(m, o, iid, MESH.margin, g),
+         lambda m, o: make_pairwise_step(m, o, iid, MESH.margin, "dense_pallas"), 1, 0),
+        ("sharded iid pointwise TransE-L1", TransE(e, r, MESH.ncomp),
+         lambda m, o, g: psh.make_sharded_pointwise_step(m, o, expanded, g),
+         lambda m, o: make_pointwise_step(m, o, expanded, "dense_pallas"), 1, 0),
+        ("RESCAL shard_relations", RESCAL(e, r, MESH.rescal_ncomp),
+         lambda m, o, g: psm.make_shardmap_pairwise_step(m, o, pool, MESH.margin, g,
+                                                         shard_relations=True),
+         lambda m, o: make_pairwise_step(m, o, pool, MESH.margin, "dense_pallas"), 2, 1),
+    )
+    for tag, model, mesh_step, incore_step, k1, k2 in cases:
+        opt = ada()
+        start = init_state(model, opt, torch.Generator().manual_seed(MESH.seed))
+        # warm accumulators: a cold AdaGrad step divides by |g| itself, and
+        # so magnifies the rounding of a gradient near 0 up to lr / eps
+        start = start._replace(opt_state={k: {"p2": torch.ones_like(v["p2"])}
+                                          for k, v in start.opt_state.items()})
+        rel = tag.startswith("RESCAL")
+        out = {}
+        for what, g in (("card", mesh), ("cpu", cpu_mesh)):
+            st = psm.shard_state_shardmap(start._replace(generator=torch.Generator(g.device)),
+                                          model, g, shard_relations=rel)
+            step = mesh_step(model, opt, g)
+            reset_counts()
+            t0 = time.perf_counter()
+            out[what] = step(st, batch.to(g.device), mask.to(g.device))
+            _sync(g.device)
+            dt = time.perf_counter() - t0
+            if what == "card":
+                counts = read_counts()
+                for name in launches:
+                    launches[name] += counts[name]
+                log(f"[12b] {tag}: the mesh step on the card in {dt:.3f} s (first call), "
+                    f"kernel launches {counts}")
+                if dev.type == "cuda":
+                    check(counts == _launches(k1, k2, k1 - k2),
+                          f"12b {tag}: launches {counts}, want {k1} K1 ({k1 - k2} on the "
+                          f"16-byte path) and {k2} K2")
+            else:
+                log(f"[12b] {tag}: the mesh step on the CPU in {dt:.3f} s")
+        t0 = time.perf_counter()
+        ref = incore_step(model, opt)(_state_on(start, dev), batch.to(dev), mask.to(dev))
+        _sync(dev)
+        log(f"[12b] {tag}: the in-core step on the card in {time.perf_counter() - t0:.3f} s; "
+            f"loss card {float(out['card'][1].loss):.6e}, cpu {float(out['cpu'][1].loss):.6e}, "
+            f"in-core {float(ref[1].loss):.6e}")
+        nv = [int(x[1].nviolations) for x in (out["card"], out["cpu"], ref)]
+        _held_to_cpu(f"12b {tag} card vs cpu", out["card"][0], out["cpu"][0], nv[:2])
+        _held_to_cpu(f"12b {tag} mesh vs in-core", out["card"][0], ref[0], nv[::2])
+    mesh_cold_step(graph, mesh, cpu_mesh, batch, mask, pool)
+
+
+@dataclasses.dataclass(frozen=True)
+class _UnconstrainedTransE(TransE):
+    """TransE without its post-constraint: a step's move is the optimizer's
+    alone."""
+
+    post_constraints = {}
+
+
+def mesh_cold_step(graph, mesh, cpu_mesh, batch, mask, pool) -> None:
+    """12b cold: the pointwise pool step (TransE-L2) from `init_state`'s
+    cold AdaGrad state (accumulators at 0), the mesh step and the in-core
+    step, each on the card and on the CPU. A cold step moves an element by
+    lr * g / max(|g|, eps): where |g| < eps that is lr / eps (1e5) times its
+    gradient, so a rounding gap in g shows magnified. With the post-
+    constraint off, the move is the optimizer's alone, and each element's
+    gradient is read back from the step: |g| is the root of the new
+    accumulator, its sign opposite to the move. Checks: the gradients agree
+    within STEP_TOL (of their size when above 1), and every param gap is
+    within lr / eps of its gradient gap, plus the rounding of the update."""
+    model = _UnconstrainedTransE(graph.n_entities, graph.n_relations, MESH.ncomp, l1=False)
+    opt = AdaGrad(lr=MESH.lr)
+    start = init_state(model, opt, torch.Generator().manual_seed(MESH.seed))
+    runs = {}
+    for what, g in (("card", mesh), ("cpu", cpu_mesh)):
+        b, m = batch.to(g.device), mask.to(g.device)
+        st = psm.shard_state_shardmap(start._replace(generator=torch.Generator(g.device)),
+                                      model, g)
+        runs["mesh " + what] = psm.make_shardmap_pointwise_step(model, opt, pool, g)(st, b, m)[0]
+        runs["in-core " + what] = make_pointwise_step(model, opt, pool, "dense_pallas")(
+            _state_on(start, g.device), b, m)[0]
+
+    def grads(state):
+        return {k: (-torch.sign(v.cpu() - start.params[k])
+                    * torch.sqrt(state.opt_state[k]["p2"].cpu())) for k, v in state.params.items()}
+
+    got = {name: (st, grads(st)) for name, st in runs.items()}
+    ratio = MESH.lr / EPS
+    for a, b in (("mesh card", "mesh cpu"), ("in-core card", "in-core cpu"),
+                 ("mesh card", "in-core card")):
+        for k in start.params:
+            pa, pb = got[a][0].params[k].cpu(), got[b][0].params[k].cpu()
+            ga, gb = got[a][1][k], got[b][1][k]
+            dp, dg = (pa - pb).abs(), (ga - gb).abs()
+            i = int(dp.argmax())
+            flat = lambda x: x.reshape(-1)[i]  # noqa: E731
+            log(f"[12b cold] {a} vs {b} {k}: max|dparam| {float(dp.max()):.3e} at element {i}: "
+                f"g {float(flat(ga)):.3e} / {float(flat(gb)):.3e}, accumulator "
+                f"{float(flat(got[a][0].opt_state[k]['p2'].cpu())):.3e} / "
+                f"{float(flat(got[b][0].opt_state[k]['p2'].cpu())):.3e}; max|dg| "
+                f"{float(dg.max()):.3e} (|g| up to {float(ga.abs().max()):.3e})")
+            check(float(dg.max()) <= STEP_TOL * max(1.0, float(ga.abs().max())),
+                  f"12b cold {a} vs {b}: {k}'s gradients within {STEP_TOL}")
+            slack = 4 * torch.finfo(pa.dtype).eps * torch.maximum(
+                torch.maximum(pa.abs(), pb.abs()), torch.tensor(MESH.lr))
+            check(bool((dp <= ratio * dg + slack).all()),
+                  f"12b cold {a} vs {b}: {k}'s gaps within lr / eps of the gradients'")
+
+
+def mesh_pad_to(graph, dev, launches) -> None:
+    """12c: an epoch of iid TransE-L1 (16 negatives) through
+    `make_epoch_fn(pad_to=4)` against `pad_to=1` on the card, from the same
+    state and generator: 10 steps of 4,831 triples, padded to 4,832."""
+    xs = torch.as_tensor(graph.train[:MESH_PAD_TRIPLES], dtype=torch.int64, device=dev)
+    model = TransE(graph.n_entities, graph.n_relations, MESH.ncomp)
+    sampler = make_sampler(TRANSE_IID, graph, dev)
+    steps = 10
+    runs = {}
+    for pad_to in (1, 4):
+        opt = AdaGrad(lr=MESH.lr)
+        state = init_state(model, opt, torch.Generator(device=dev).manual_seed(MESH.seed))
+        epoch = make_epoch_fn(make_pairwise_step(model, opt, sampler, MESH.margin,
+                                                 "dense_pallas"), len(xs), steps, pad_to)
+        reset_counts()
+        t0 = time.perf_counter()
+        state, m = epoch(state, xs)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        if pad_to > 1:
+            for name in launches:
+                launches[name] += counts[name]
+            if dev.type == "cuda":
+                check(counts == _launches(steps, 0, steps), f"12c: launches {counts}")
+        runs[pad_to] = (state, m.nviolations.cpu().numpy())
+        log(f"[12c] pad_to={pad_to}: {steps} steps of {-(-len(xs) // steps)} triples "
+            f"(padded to {-(-len(xs) // steps) + (-(-(-len(xs) // steps)) % pad_to)}) in "
+            f"{dt:.3f} s, violations {int(runs[pad_to][1].sum())}; kernel launches {counts}")
+    err = max(float((runs[4][0].params[k] - runs[1][0].params[k]).abs().max())
+              for k in runs[1][0].params)
+    log(f"[12c] pad_to=4 against pad_to=1: max |dparam| {err:.3e}, violations a step "
+        f"equal: {bool(np.array_equal(runs[4][1], runs[1][1]))}")
+    check(np.array_equal(runs[4][1], runs[1][1]), "12c: the same violations every step")
+    check(err <= STEP_TOL, f"12c: pad_to=4 within {STEP_TOL} of pad_to=1")
+
+
+def mesh_serving(graph, tr, dev, mesh) -> None:
+    """12d: the mesh's serving engine and ranking on 12a's params against
+    the single-device ones."""
+    model, params = tr.model, tr.state.params
+    rng = np.random.default_rng(0)  # scripts/serving_bench.py's queries
+    queries = np.stack([rng.integers(0, graph.n_entities, SERVE.nqueries),
+                        rng.integers(0, graph.n_relations, SERVE.nqueries)],
+                       axis=1)[:MESH_QUERIES]
+    for quant in ("", "int8"):
+        got, want = (LinkPredictor(model, params, known=graph.train, batch_size=SERVE.batch,
+                                   quantize=quant, **kw).top_k(queries, SERVE.k)
+                     for kw in (dict(mesh=mesh), dict(device=dev)))
+        same = (np.array_equal(got.entities, want.entities)
+                and np.array_equal(got.scores, want.scores))
+        log(f"[12d] LinkPredictor(mesh=) {quant or 'exact'}: {MESH_QUERIES} queries, top-"
+            f"{SERVE.k} ids and values equal to LinkPredictor(): {same}")
+        check(same, f"12d: the mesh engine's top-{SERVE.k} ({quant or 'exact'})")
+    t0 = time.perf_counter()
+    got = FilteredRankingEval(model, graph.test, graph.all_triples(), mesh=mesh)(params)
+    _sync(dev)
+    t_mesh = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = FilteredRankingEval(model, graph.test, graph.all_triples())(params)
+    _sync(dev)
+    log(f"[12d] {len(graph.test)} test triples: mesh ranking {t_mesh:.3f} s, unsharded "
+        f"{time.perf_counter() - t0:.3f} s")
+    ranks_agree("12d", got, want, _min_gaps(model, params, graph.test, dev))
+
+
+def mesh_phase(graph, dev, launches) -> None:
+    """Phase 12, the 2-D mesh at (1, 1); the process group is destroyed at
+    the end whatever happens."""
+    try:
+        m = _mesh_group(dev)
+        tr = mesh_trainer(graph, dev, m, launches)
+        mesh_steps(graph, dev, m, _cpu_mesh(), launches)
+        mesh_pad_to(graph, dev, launches)
+        mesh_serving(graph, tr, dev, m)
+    finally:
+        pdist.destroy()
+
+
+
 def main(argv) -> int:
     if argv not in ([], ["--kernel-times"]):
         print("usage: python3 chip_smoke.py [--kernel-times]", file=sys.stderr)
@@ -2527,6 +2892,8 @@ def main(argv) -> int:
     outofcore_gates(dev, launches)
     t_10 = time.perf_counter()
     partitioned(fb15k, dev, launches)
+    t_11 = time.perf_counter()
+    mesh_phase(fb15k, dev, launches)
     t_end = time.perf_counter()
     log(f"[time] phases 1-2 {t_build - t0:.1f} s, 3 {t_kernels - t_build:.1f} s, "
         f"4 {t_train - t_kernels:.1f} s (graphs included), 5-6 {t_eval - t_train:.1f} s, "
@@ -2537,7 +2904,7 @@ def main(argv) -> int:
         f"9d {t_9 - t_9c:.1f}), 10 {t_10 - t_9:.1f} s (10a-b {t_10a - t_9:.1f}, "
         f"10c {t_10c - t_10a:.1f}, 10d {t_10d - t_10c:.1f}, 10e {t_10e - t_10d:.1f}, "
         f"10f {t_10f - t_10e:.1f}, 10g {t_10g - t_10f:.1f}, 10h {t_10 - t_10g:.1f}), "
-        f"11 {t_end - t_10:.1f} s")
+        f"11 {t_11 - t_10:.1f} s, 12 {t_end - t_11:.1f} s")
     # each kernel at the TransE or RESCAL slice's shape, its other timed
     # shapes under "shapes"
     log(json.dumps({"kernels": [{

@@ -14,7 +14,8 @@ out of the candidates (the partitioned relabeling's padding rows). With a
 `group` (`parallel.distributed.ShardGroup`) the entity table is row-sharded
 over its ranks: each rank scores only its own candidate columns and the
 greater and equal counts are summed over the ranks, the ranks of the
-gathered table. `RankingResult` splits the
+gathered table. `mesh` (a `parallel.mesh.Mesh`) does the same over the
+mesh's `axis` group ('model' by default). `RankingResult` splits the
 metrics by direction, relation and relation category
 (`relation_categories`); `ReciprocalEvalWrapper` ranks a model trained on
 reciprocal relations through its inverse relations.
@@ -178,7 +179,10 @@ class FilteredRankingEval:
     `candidate_mask` ((n_e,) bool): the entities that may compete (targets
     are always among them). `group`: the entity table is row-sharded over
     the group's ranks (rank r holds rows [r*S, (r+1)*S) in `params`), and
-    every rank calls the evaluator with the same test set.
+    every rank calls the evaluator with the same test set. `mesh` with
+    `axis`: the group of that mesh axis, the JAX package's `mesh=`/`axis=`
+    (params are the rank's part, as `Trainer(mesh=)` holds them, or whole
+    tables, of which each rank scores its own rows).
     """
 
     def __init__(
@@ -191,9 +195,15 @@ class FilteredRankingEval:
         ties: str = "mean",
         group=None,
         candidate_mask: Optional[np.ndarray] = None,
+        mesh=None,
+        axis: str = "model",
     ):
         if ties not in ("mean", "optimistic"):
             raise ValueError(f"ties must be 'mean' or 'optimistic', got {ties!r}")
+        if mesh is not None:
+            if group is not None:
+                raise ValueError("pass a group or a mesh, not both")
+            group = mesh.group(axis)
         self.model = model
         self.ties = ties
         self.group = group
@@ -236,17 +246,12 @@ class FilteredRankingEval:
             inv = model._inv
         slots = model.slot_spec()
         epname = next(pn for _, pn, r in slots if r == "s")
-        table = params[epname]
+        from skge_torch.parallel.mesh import row_block
+
+        table = row_block(params[epname], model.n_entities, group)  # or a whole table
         s_rows = table.shape[0]
         lo = group.rank * s_rows
         dense = model.dense_params(params)
-
-        def ent_rows(ids):  # owners answer, one all-reduce
-            local = ids - lo
-            own = (local >= 0) & (local < s_rows)
-            rows = table[torch.clamp(local, 0, s_rows - 1)]
-            return group.all_reduce(torch.where(
-                own.reshape(own.shape + (1,) * (rows.dim() - 1)), rows, 0))
 
         def score(d, batch):
             s, o, p = batch[:, 0], batch[:, 1], batch[:, 2]
@@ -257,7 +262,8 @@ class FilteredRankingEval:
             else:
                 idx, mode, target = {"s": s, "o": o, "p": p}, 0, s
             need = {"p", "s" if mode == 1 else "o"}
-            rows = {slot: (ent_rows(idx[role]) if pn == epname else params[pn][idx[role]])
+            rows = {slot: (group.gather_rows(idx[role], s_rows, table.__getitem__)
+                           if pn == epname else params[pn][idx[role]])
                     for slot, pn, role in slots if role in need}
             return model.score_pool(rows, table, dense, mode), target
 

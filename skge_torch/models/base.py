@@ -188,3 +188,12 @@ class KGEModel:
     def score_triples(self, params: Params, triples: torch.Tensor) -> torch.Tensor:
         """triples: (B, 3) int64 tensor in (s, o, p) column order."""
         return self.score(params, triples[:, 0], triples[:, 1], triples[:, 2])
+
+
+def entity_param(model: KGEModel) -> str:
+    """The name of the table that holds subjects and objects alike (the
+    entity table that the sharded and serving paths split or quantize)."""
+    by_role = {role: pname for _, pname, role in model.slot_spec()}
+    if by_role["s"] != by_role["o"]:
+        raise ValueError("subjects and objects must share one entity table")
+    return by_role["s"]

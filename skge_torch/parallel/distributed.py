@@ -34,7 +34,7 @@ import sys
 import tempfile
 from dataclasses import dataclass
 from datetime import timedelta
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -160,6 +160,19 @@ class ShardGroup:
         dist.all_reduce(x, op=op, group=self.group)
         return x
 
+    def gather_rows(self, idx: torch.Tensor, s_rows: int,
+                    read: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+        """Rows `idx` (global ids) of a table row-split over the group in
+        blocks of `s_rows`, the same on every rank: each rank reads the rows
+        it owns (`read(local ids)`), zeros elsewhere, and one all-reduce
+        assembles them. The sum adds zeros to one owner's row, so the result
+        is that row bit for bit."""
+        local = idx - self.rank * s_rows
+        own = (local >= 0) & (local < s_rows)
+        rows = read(torch.clamp(local, 0, s_rows - 1))
+        return self.all_reduce(torch.where(
+            own.reshape(own.shape + (1,) * (rows.dim() - own.dim())), rows, 0))
+
     def all_reduce_(self, x: torch.Tensor) -> torch.Tensor:
         """Sum `x` over the ranks in place; `x` must be contiguous."""
         dist.all_reduce(x, group=self.group)
@@ -196,17 +209,22 @@ class ShardGroup:
                 dist.barrier(group=self.group)
 
 
+def world_device() -> torch.device:
+    """This process's device in the initialized world: the one `initialize`
+    chose, else (a group made by the caller) the one its backend says."""
+    if _device is not None:
+        return _device
+    return (torch.device("cuda", torch.cuda.current_device())
+            if dist.get_backend() == "nccl" else torch.device("cpu"))
+
+
 def make_shard_mesh(device=None) -> ShardGroup:
     """The world as a `ShardGroup`, initializing it first when needed
     (`initialize(device=device)`)."""
     if not dist.is_initialized():
         initialize(device=device)
-    dev = _device
-    if dev is None:  # a group made by the caller: its backend says where
-        dev = (torch.device("cuda", torch.cuda.current_device())
-               if dist.get_backend() == "nccl" else torch.device("cpu"))
     return ShardGroup(group=dist.group.WORLD, rank=dist.get_rank(),
-                      size=dist.get_world_size(), device=dev)
+                      size=dist.get_world_size(), device=world_device())
 
 
 def destroy() -> None:

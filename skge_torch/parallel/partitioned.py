@@ -53,7 +53,7 @@ import torch.distributed as dist
 
 from skge_torch.data import greedy_entity_partition, partition_edges
 from skge_torch.evaluation import FilteredRankingEval, ReciprocalEvalWrapper
-from skge_torch.models.base import KGEModel
+from skge_torch.models.base import KGEModel, entity_param
 from skge_torch.ops.aggregate import DenseGrads
 from skge_torch.ops.cuda_segment import segment_sum
 from skge_torch.optim import POST_CONSTRAINTS, Optimizer, _bcast
@@ -232,33 +232,30 @@ def _augment(grads: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
                       flat.new_zeros((t, -(f + 1) % 4))], dim=1)
 
 
-def _entity_param(model: KGEModel) -> str:
-    by_role = {role: pname for _, pname, role in model.slot_spec()}
-    if by_role["s"] != by_role["o"]:
-        raise ValueError("subjects and objects must share one entity table")
-    return by_role["s"]
-
-
 def partitioned_state_specs(model: KGEModel, opt: Optimizer):
     """(entity param name, {pname: SHARD_AXIS or None}, TrainState of
     specs): the entity table and its optimizer slots are row-sharded,
     everything else replicated."""
-    epname = _entity_param(model)
+    epname = entity_param(model)
     specs = {pname: (SHARD_AXIS if pname == epname else None)
              for _, pname, _ in model.slot_spec()}
     specs.update({pname: None for pname in model.dense_param_names})
+    return epname, specs, state_specs(specs, opt)
+
+
+def state_specs(specs: Dict[str, Optional[str]], opt: Optimizer) -> TrainState:
+    """A TrainState of specs from the params' `specs`: every optimizer slot
+    of `opt` split as its table (axis 0 keeps the row split, whatever the
+    slot's rank: Adam's per-row `t` is 1-D)."""
     slot_names = tuple(opt.init({"x": torch.zeros(1)})["x"])
-    state_spec = TrainState(
-        params=dict(specs),
-        opt_state={k: {sn: specs[k] for sn in slot_names} for k in specs},
-        generator=None, step=None,
-    )
-    return epname, specs, state_spec
+    return TrainState(params=dict(specs),
+                      opt_state={k: {sn: specs[k] for sn in slot_names} for k in specs},
+                      generator=None, step=None)
 
 
 def _prep(model, group: ShardGroup, sampler, boundary_cap, ragged):
     """Shared validation: (entity param name, S, shared pool?)."""
-    epname = _entity_param(model)
+    epname = entity_param(model)
     n_e = model.n_entities
     if n_e % group.size != 0:
         raise ValueError(
@@ -558,7 +555,7 @@ def make_partitioned_ce_step(
     single-device run on the padded model, and are masked out of the
     candidates at evaluation. With `directions=('o',)` no entity row
     crosses ranks in the forward gather."""
-    epname = _entity_param(model)
+    epname = entity_param(model)
     if model.n_entities % group.size != 0:
         raise ValueError(
             f"n_entities={model.n_entities} must be {group.size}*S; relabel with "
@@ -766,7 +763,7 @@ def shard_state_partitioned(state: TrainState, model: KGEModel, group: ShardGrou
     entity table and its optimizer slots, every other leaf whole, on the
     group's device. The generator is `generator`, else the state's when it
     is on the group's device type, else a new one seeded as the state's."""
-    epname = _entity_param(model)
+    epname = entity_param(model)
     s_rows = model.n_entities // group.size
     lo, hi = group.rank * s_rows, (group.rank + 1) * s_rows
 
@@ -917,7 +914,7 @@ class PartitionedTrainer:
         return list(self._metrics)
 
     def _sharded(self):
-        return (_entity_param(self.model),)
+        return (entity_param(self.model),)
 
     def save(self, dirpath: str) -> "PartitionedTrainer":
         """Sharded checkpoint in the JAX package's layout: each rank writes
@@ -970,7 +967,7 @@ class PartitionedTrainer:
     def params(self) -> Dict[str, np.ndarray]:
         """Host params with the entity table in ORIGINAL ids (all-gathered
         from every rank), for the original-size model."""
-        epname = _entity_param(self.model)
+        epname = entity_param(self.model)
         out = {}
         for name, v in self._state.params.items():
             if name == epname:

@@ -22,8 +22,15 @@ The entity table may be stored quantized: per-row int8 or float8_e4m3fn
 with an fp32 scale (`quantize_table_int8`, `quantize_table_fp8`), or
 bfloat16; query rows and candidates are dequantized to fp32 before
 scoring. The JAX package's `aot_kernels` and `export_serialized` are XLA
-and StableHLO artifacts and have no counterpart here; its candidate-
-sharded mesh engine waits for `torch.distributed`.
+and StableHLO artifacts and have no counterpart here.
+
+`LinkPredictor(mesh=, axis=)` is the candidate-sharded engine: the entity
+table row-sharded over the mesh's `axis` group, each rank gathers the query
+rows masked-locally (one all-reduce), scores only its own candidate block,
+filters with local ids and takes its local top-min(k, S); the (B, k)
+frontiers are all-gathered and merged under the same lower-id rule. Every
+rank of the group calls `top_k` with the same queries and gets the same
+result.
 
 Every engine runs on the card unless the caller asks for the CPU
 (`device="cpu"`); without a GPU it raises.
@@ -39,7 +46,7 @@ import torch
 
 from skge_torch.data import true_triple_index
 from skge_torch.evaluation import NEG_INF
-from skge_torch.models.base import KGEModel, Params
+from skge_torch.models.base import KGEModel, Params, entity_param
 from skge_torch.utils.device import resolve_device
 
 __all__ = [
@@ -94,10 +101,6 @@ class TopKResult:
     scores: np.ndarray    # (B, k) float32
 
 
-def _entity_param(model: KGEModel) -> str:
-    return {role: pname for _, pname, role in model.slot_spec()}["o"]
-
-
 def _tensor(v) -> torch.Tensor:
     """A tensor of `v` (a tensor, or anything numpy reads)."""
     return v if torch.is_tensor(v) else torch.as_tensor(np.array(v))
@@ -136,7 +139,7 @@ def _query_rows(model: KGEModel, params: Params, ent, rel, direction: str):
     are dequantized per gather, and every row lands on `rel`'s device (the
     streamed engine gathers entity rows on the host).
     """
-    epname = _entity_param(model)
+    epname = entity_param(model)
     zeros = torch.zeros_like(ent)
     s_idx, o_idx = (ent, zeros) if direction == "o" else (zeros, ent)
     idx_by_role = {"s": s_idx, "o": o_idx, "p": rel}
@@ -230,8 +233,10 @@ class LinkPredictor:
     `known` (optional (N, 3) (s, o, p) triples, typically train ∪ valid)
     enables filtered retrieval: known-true completions are removed before
     the top k. `quantize` stores the entity table as 'int8', 'fp8' (4x
-    smaller) or 'bfloat16' (2x); scores are then approximate. `mesh=` (the
-    JAX package's candidate-sharded engine) raises NotImplementedError.
+    smaller) or 'bfloat16' (2x); scores are then approximate. `mesh` (a
+    `parallel.mesh.Mesh`) shards the candidates over its `axis` group: the
+    params are whole tables or this rank's part (`Trainer(mesh=)`'s
+    state), and `n_entities` must divide by the axis size.
     """
 
     def __init__(
@@ -245,18 +250,27 @@ class LinkPredictor:
         quantize: str = "",
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the mesh serving engine is not ported yet: it waits for "
-                "torch.distributed (ROADMAP.md queue 1 item 5)")
         if quantize not in _QUANT_MODES:
             raise ValueError(f"unknown quantize mode {quantize!r}")
-        self.device = resolve_device(device, "serves")
+        self.group = None
+        if mesh is not None:
+            from skge_torch.parallel.mesh import row_block
+
+            if device is not None and torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device={device!r} but the mesh runs on {mesh.device}")
+            self.group = mesh.group(axis)
+            if model.n_entities % self.group.size != 0:
+                raise ValueError(
+                    f"n_entities={model.n_entities} not divisible by mesh axis "
+                    f"{axis}={self.group.size}; pad the entity count")
+        self.device = mesh.device if mesh is not None else resolve_device(device, "serves")
         self.model = model
         self.quantize = quantize
         self.axis = axis
-        epname = _entity_param(model)
+        epname = entity_param(model)
         params = {kk: _tensor(v) for kk, v in params.items()}
+        if self.group is not None:  # this rank's candidate block
+            params[epname] = row_block(params[epname], model.n_entities, self.group)
         params[epname] = _quantized(params[epname], quantize)
         self.params = {
             kk: ({n: t.to(self.device) for n, t in v.items()} if isinstance(v, dict)
@@ -270,12 +284,54 @@ class LinkPredictor:
 
     @torch.no_grad()
     def _batch(self, ent, rel, frows, fents, direction: str, k: int):
+        if self.group is not None:
+            return self._sharded_batch(ent, rel, frows, fents, direction, k)
         model, params = self.model, self.params
         rows = _query_rows(model, params, ent, rel, direction)
-        scores = model.score_pool(rows, _deq(params[_entity_param(model)]),
+        scores = model.score_pool(rows, _deq(params[entity_param(model)]),
                                   model.dense_params(params), _MODE[direction])
         _set_filtered(scores, frows, fents)
         vals, ids = _top_k(scores, k)
+        return _mask_invalid(vals, ids.to(torch.int32))
+
+    def _sharded_rows(self, idx_by_role):
+        """Each slot's rows on the candidate-sharded engine: entity rows by
+        the masked-local gather over the group (`ShardGroup.gather_rows`),
+        dequantized by their owner; other tables whole."""
+        model, params, group = self.model, self.params, self.group
+        epname = entity_param(model)
+        s_rows = model.n_entities // group.size
+        rows = {}
+        for slot, pname, role in model.slot_spec():
+            idx = idx_by_role[role]
+            rows[slot] = (params[pname][idx] if pname != epname else group.gather_rows(
+                idx, s_rows, lambda i: _deq_rows(params[epname], i)))
+        return rows
+
+    def _sharded_batch(self, ent, rel, frows, fents, direction: str, k: int):
+        """One batch on the candidate-sharded engine: this rank's block
+        scored, filtered and cut to its top-min(k, S), the frontiers of
+        the group merged."""
+        model, params, group = self.model, self.params, self.group
+        qe = params[entity_param(model)]
+        s_rows = model.n_entities // group.size
+        off = group.rank * s_rows
+        zeros = torch.zeros_like(ent)
+        s_idx, o_idx = (ent, zeros) if direction == "o" else (zeros, ent)
+        rows = self._sharded_rows({"s": s_idx, "o": o_idx, "p": rel})
+        scores = model.score_pool(rows, _deq(qe), model.dense_params(params),
+                                  _MODE[direction])                 # (B, S)
+        # global filter ids -> local; other ranks' pairs fall out of range
+        loc = fents - off
+        _set_filtered(scores, frows, torch.where((loc >= 0) & (loc < s_rows), loc, s_rows))
+        lvals, lids = _top_k(scores, min(k, s_rows))
+        # (B, M * k') frontier in rank order: among equal scores the lower
+        # position is the lower id, so `_top_k`'s rule carries over
+        b = lvals.shape[0]
+        avals = group.all_gather(lvals.contiguous()).permute(1, 0, 2).reshape(b, -1)
+        aids = group.all_gather((lids + off).contiguous()).permute(1, 0, 2).reshape(b, -1)
+        vals, pick = _top_k(avals, k)
+        ids = torch.gather(aids, 1, pick)
         return _mask_invalid(vals, ids.to(torch.int32))
 
     def top_k(
@@ -286,7 +342,9 @@ class LinkPredictor:
         filtered: bool = True,
     ) -> TopKResult:
         """Top-k completions for `queries`, an (N, 2) int array of
-        (entity, relation): (s, p) rows for direction 'o', (o, p) for 's'."""
+        (entity, relation): (s, p) rows for direction 'o', (o, p) for 's'.
+        On a mesh, every rank of the axis group calls it with the same
+        queries."""
         _check_direction(direction)
         q = _queries(queries)
         n = q.shape[0]
@@ -313,6 +371,10 @@ class LinkPredictor:
         """Model scores for explicit (s, o, p) triples (link plausibility)."""
         t = torch.as_tensor(np.asarray(triples, np.int64).reshape(-1, 3),
                             device=self.device)
+        if self.group is not None:
+            rows = self._sharded_rows({"s": t[:, 0], "o": t[:, 1], "p": t[:, 2]})
+            return self.model.score_from_rows(
+                rows, self.model.dense_params(self.params)).cpu().numpy()
         params = {kk: _deq(v) for kk, v in self.params.items()}
         return self.model.score_triples(params, t).cpu().numpy()
 
@@ -360,7 +422,7 @@ class StreamedLinkPredictor:
         self.quantize = quantize
         self.batch_size = int(batch_size)
         self.chunk = int(min(chunk, model.n_entities))
-        self._epname = epname = _entity_param(model)
+        self._epname = epname = entity_param(model)
         stored = _quantized(_tensor(params_host[epname]).cpu(), quantize)
         pin = self.device.type == "cuda"
 

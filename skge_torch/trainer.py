@@ -11,6 +11,12 @@ Training runs on the card unless the caller asks for the CPU: `device`
 defaults to "cuda", and without a GPU the trainer raises rather than fall
 back. The host syncs once per epoch, to read the summed loss and violation
 count, never once per step.
+
+With `mesh` (`parallel.mesh.make_mesh`), every process of the mesh runs
+the same `Trainer` on the same triples: the entity table (and, with
+`shard_relations`, the relation tables) row-sharded over 'model', each
+batch split over 'data'. The steps draw for the global batch from the
+same generator on every rank, so the trajectory is the single-device one.
 """
 
 from __future__ import annotations
@@ -69,7 +75,8 @@ class TrainConfig:
     warmup: int = 0
     schedule_min: float = 0.0
     aggregate: str = "unique"
-    # mesh runs of the JAX package only; kept so configs carry across
+    # mesh runs only: row-shard the relation tables over 'model' too (the
+    # shard_map steps, not full CE), the memory mode of wide relation tables
     shard_relations: bool = False
     seed: int = 0
     checkpoint_path: Optional[str] = None
@@ -95,7 +102,15 @@ class Trainer:
     """Drives epochs of the step for `config.loss`; owns the state, the
     metrics and the callbacks. `post_epoch`: `f(trainer) -> truthy to
     continue`. `device` is "cuda" by default; without a GPU the trainer
-    raises unless the CPU is asked for."""
+    raises unless the CPU is asked for.
+
+    `mesh`: a ('data', 'model') `parallel.mesh.Mesh`; the trainer then runs
+    on the mesh's device, the steps of `parallel.shardmap_step` (CE: the
+    vocab-parallel step; sampled CE, selfadv, pairwise and pointwise on a
+    pool: `cfg.shard_relations` applies) or, for pointwise with an iid
+    sampler, `parallel.sharded`'s, over `make_epoch_fn(..., pad_to=D)`.
+    `state` is this rank's part; loss and violations are global on every
+    rank, and `save` writes the full tables."""
 
     def __init__(
         self,
@@ -107,18 +122,23 @@ class Trainer:
         device=None,
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh training is not ported yet (ROADMAP.md queue 9)")
         if config.loss not in LOSSES:
             raise ValueError(f"unknown loss {config.loss!r}")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device={device!r} but the mesh runs on {mesh.device}")
+            self.device = mesh.device
+        else:
+            self.device = resolve_device(device)
         self.model = model
         self.config = config
         self.sampler = sampler
         self.post_epoch = list(post_epoch)
         self.opt = make_optimizer(config) if optimizer is None else optimizer
-        self.metrics = MetricsLogger(config.metrics_jsonl)
+        # on a mesh only the world's rank 0 writes the metrics file
+        self.metrics = MetricsLogger(
+            config.metrics_jsonl if mesh is None or mesh.rank == 0 else None)
         self.state: Optional[TrainState] = None
         # per-epoch scalars for callbacks (reference attribute contract)
         self.epoch = 0
@@ -129,6 +149,8 @@ class Trainer:
         """The train step of `config.loss`: (state, batch, mask) -> (state,
         metrics)."""
         cfg, model, opt, sampler = self.config, self.model, self.opt, self.sampler
+        if self.mesh is not None:
+            return self._mesh_step()
         if cfg.loss == "sampled_ce":
             return make_sampled_ce_step(model, opt, sampler, tuple(cfg.ce_directions),
                                         cfg.label_smoothing, cfg.aggregate)
@@ -141,6 +163,48 @@ class Trainer:
             return make_pairwise_step(model, opt, sampler, cfg.margin, cfg.aggregate)
         return make_pointwise_step(model, opt, sampler, cfg.aggregate)
 
+    @property
+    def _shard_relations(self) -> bool:
+        """Relation tables row-sharded: the shard_map routes but full CE."""
+        cfg = self.config
+        return cfg.shard_relations and cfg.loss != "ce" and (
+            cfg.loss != "margin" or cfg.pairwise or hasattr(self.sampler, "pool"))
+
+    def _mesh_step(self):
+        """The mesh step of `config.loss`, routed as the JAX package's
+        `Trainer._build_mesh_epoch`."""
+        from skge_torch.parallel import sharded, shardmap_step as sm
+
+        cfg, model, opt, sampler, mesh = (self.config, self.model, self.opt,
+                                          self.sampler, self.mesh)
+        rel = self._shard_relations
+        if cfg.loss == "ce":
+            return sm.make_shardmap_ce_step(model, opt, mesh, tuple(cfg.ce_directions),
+                                            cfg.label_smoothing)
+        if cfg.loss == "sampled_ce":
+            return sm.make_shardmap_sampled_ce_step(
+                model, opt, sampler, mesh, tuple(cfg.ce_directions),
+                cfg.label_smoothing, shard_relations=rel)
+        if cfg.loss == "selfadv":
+            return sm.make_shardmap_selfadv_step(model, opt, sampler, cfg.margin, mesh,
+                                                 alpha=cfg.adv_alpha, shard_relations=rel)
+        if cfg.pairwise:
+            return sm.make_shardmap_pairwise_step(model, opt, sampler, cfg.margin, mesh,
+                                                  shard_relations=rel)
+        if hasattr(sampler, "pool"):
+            return sm.make_shardmap_pointwise_step(model, opt, sampler, mesh,
+                                                   shard_relations=rel)
+        return sharded.make_sharded_pointwise_step(model, opt, sampler, mesh)
+
+    def _place(self, state: TrainState) -> TrainState:
+        """On a mesh, this rank's part of a full state (a state already
+        split, as `self.state`, stays as it is)."""
+        from skge_torch.parallel.mesh import shard_state
+
+        if self.mesh is None:
+            return state
+        return shard_state(state, self.model, self.mesh, self._shard_relations)
+
     def fit(
         self,
         xs: np.ndarray,
@@ -152,11 +216,12 @@ class Trainer:
                              device=self.device)
         n = xs.shape[0]
         cfg = self.config
-        epoch_fn = make_epoch_fn(self.make_step(), n, min(cfg.nbatches, n))
+        pad_to = 1 if self.mesh is None else self.mesh.data.size
+        epoch_fn = make_epoch_fn(self.make_step(), n, min(cfg.nbatches, n), pad_to=pad_to)
         if state is None:
             gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
             state = init_state(self.model, self.opt, gen)
-        self.state = state
+        self.state = self._place(state)
         timer = StepTimer()
         for epoch in range(start_epoch, cfg.max_epochs):
             self.epoch = epoch + 1
@@ -186,10 +251,24 @@ class Trainer:
             self.save(cfg.checkpoint_path)
         return self.state
 
-    def save(self, path: str) -> None:
+    def full_state(self) -> TrainState:
+        """The whole state: on a mesh, every row-sharded table and its slots
+        all-gathered over 'model' (a collective: every rank calls it)."""
         if self.state is None:
-            raise RuntimeError("nothing to save before fit()")
-        save_checkpoint(path, self.state, meta={
+            raise RuntimeError("no state before fit()")
+        if self.mesh is None:
+            return self.state
+        from skge_torch.parallel.mesh import unshard_state
+
+        return unshard_state(self.state, self.model, self.mesh, self._shard_relations)
+
+    def save(self, path: str) -> None:
+        """An npz checkpoint of the full state; on a mesh every rank must
+        call it (the tables are gathered) and the world's rank 0 writes."""
+        state = self.full_state()
+        if self.mesh is not None and self.mesh.rank != 0:
+            return
+        save_checkpoint(path, state, meta={
             "model": self.model.name,
             "epoch": self.epoch,
             "config": self.config.to_meta(),

@@ -83,14 +83,24 @@ class StepMetrics(NamedTuple):
     nviolations: torch.Tensor
 
 
-def _row_leaves(model: KGEModel, params: Params, s, o, p):
+def _row_leaves(model: KGEModel, params: Params, s, o, p,
+                gather: Optional[Callable] = None):
     """Each slot's gathered rows as an autograd leaf, so autograd gives one
-    gradient row per occurrence."""
+    gradient row per occurrence. `gather(pname, idx, role)`, when given,
+    fetches the rows instead of `params[pname][idx]` (the mesh steps pass
+    one that reads a row-sharded table)."""
     idx = {"s": s, "o": o, "p": p}
+    if gather is None:
+        gather = _plain_gather(params)
     return {
-        slot: params[pname][idx[role]].detach().requires_grad_()
+        slot: gather(pname, idx[role], role).detach().requires_grad_()
         for slot, pname, role in model.slot_spec()
     }
+
+
+def _plain_gather(params: Params) -> Callable:
+    """The gather hook's default: `params[pname][idx]`."""
+    return lambda pname, idx, role=None: params[pname][idx]
 
 
 def _dense_leaves(model: KGEModel, params: Params):
@@ -128,11 +138,13 @@ def pointwise_grads(
     triples: torch.Tensor,  # (B, 3) int64, (s, o, p)
     ys: torch.Tensor,       # (B,) float +-1
     mask: torch.Tensor,     # (B,) float {0, 1}
+    gather: Optional[Callable] = None,  # (pname, idx, role) -> rows override
 ):
     """Logistic loss over the (positives + appended negatives) batch.
-    Returns (loss, occ, g_dense); occ = {pname: (indices, grads, mask)}."""
+    Returns (loss, occ, g_dense); occ = {pname: (indices, grads, mask)}.
+    `gather` as in `_row_leaves`."""
     s, o, p = triples[:, 0], triples[:, 1], triples[:, 2]
-    rows = _row_leaves(model, params, s, o, p)
+    rows = _row_leaves(model, params, s, o, p, gather)
     dense = _dense_leaves(model, params)
     with torch.enable_grad():
         f = model.score_from_rows(rows, dense)
@@ -152,14 +164,15 @@ def pairwise_grads(
     neg: torch.Tensor,   # (M, 3) corrupted triples
     mask: torch.Tensor,  # (M,) float {0, 1} pair validity (padding, sampler)
     margin: float,
+    gather: Optional[Callable] = None,  # (pname, idx, role) -> rows override
 ):
     """Margin ranking loss on violating pairs only, over the expanded pair
     list. Returns (loss, nviol, occ, g_dense); the occurrence mask is the
-    violation mask."""
+    violation mask. `gather` as in `_row_leaves`."""
     sop_p = (pos[:, 0], pos[:, 1], pos[:, 2])
     sop_n = (neg[:, 0], neg[:, 1], neg[:, 2])
-    rows_p = _row_leaves(model, params, *sop_p)
-    rows_n = _row_leaves(model, params, *sop_n)
+    rows_p = _row_leaves(model, params, *sop_p, gather=gather)
+    rows_n = _row_leaves(model, params, *sop_n, gather=gather)
     dense = _dense_leaves(model, params)
     af = ACTIVATIONS[model.pairwise_af][0]
     with torch.enable_grad():
@@ -274,12 +287,10 @@ def _leaves(model: KGEModel, params: Params, pos: torch.Tensor,
     if epname != slot_by_role["o"][1]:
         raise ValueError("subjects and objects must share one entity table")
     if gather is None:
-        rows = _row_leaves(model, params, role_idx["s"], role_idx["o"], role_idx["p"])
-        ent_rows = params[epname][ent_idx].detach().requires_grad_()
-    else:
-        rows = {slot: gather(pname, role_idx[role], role).detach().requires_grad_()
-                for slot, pname, role in model.slot_spec()}
-        ent_rows = gather(epname, ent_idx, ent_role).detach().requires_grad_()
+        gather = _plain_gather(params)
+    rows = _row_leaves(model, params, role_idx["s"], role_idx["o"], role_idx["p"],
+                       gather)
+    ent_rows = gather(epname, ent_idx, ent_role).detach().requires_grad_()
     return role_idx, epname, rows, ent_rows, _dense_leaves(model, params)
 
 
@@ -373,13 +384,16 @@ def pairwise_grads_shared(
     return loss, nviol, occ, g_dense
 
 
-def _bilinear_rows(params: Params, pos: torch.Tensor, pool_idx: torch.Tensor):
+def _bilinear_rows(params: Params, pos: torch.Tensor, pool_idx: torch.Tensor,
+                   gather: Optional[Callable] = None):
     """RESCAL's gathered rows in the accumulation dtype, and its (B, d)
-    queries q = e_s W_p (object pool) and r = W_p e_o (subject pool)."""
-    E, W = params["E"], params["W"]
-    acc = acc_dtype(E)
+    queries q = e_s W_p (object pool) and r = W_p e_o (subject pool).
+    `gather` as in `_leaves` (the pool's role is 'pool')."""
+    g = _plain_gather(params) if gather is None else gather
+    acc = acc_dtype(params["E"])
     s, o, p = pos[:, 0], pos[:, 1], pos[:, 2]
-    es, eo, wp, pool = (x.to(acc) for x in (E[s], E[o], W[p], E[pool_idx]))
+    es, eo, wp, pool = (x.to(acc) for x in (
+        g("E", s, "s"), g("E", o, "o"), g("W", p, "p"), g("E", pool_idx, "pool")))
     q = torch.einsum("bi,bij->bj", es, wp)
     r = torch.einsum("bij,bj->bi", wp, eo)
     return (s, o, p), (es, eo, wp, pool), q, r
@@ -393,6 +407,7 @@ def pairwise_grads_shared_bilinear(
     mask: torch.Tensor,       # (B,) batch validity
     margin: float,
     modes: Tuple[int, ...] = (0, 1),
+    gather: Optional[Callable] = None,  # (pname, idx, role) -> rows override
 ):
     """RESCAL shared-pool gradients with the W cotangent kept FACTORED.
 
@@ -406,11 +421,12 @@ def pairwise_grads_shared_bilinear(
 
     so W's occurrences come back as a `FactoredOcc` of (u, v) factor pairs
     for `segment_outer_mean_dense`. Occurrence counts are those of
-    `pairwise_grads_shared`; W's is 2 per violating pair.
+    `pairwise_grads_shared`; W's is 2 per violating pair. `gather` as in
+    `_leaves`.
     """
     if model.pairwise_af != "linear":
         raise ValueError("the factored path needs raw (linear) pair scores")
-    (s, o, p), (es, eo, wp, pool), q, r = _bilinear_rows(params, pos, pool_idx)
+    (s, o, p), (es, eo, wp, pool), q, r = _bilinear_rows(params, pos, pool_idx, gather)
     acc = q.dtype
     gp = torch.sum(q * eo, dim=-1)  # (B,)
     valid = (mask > 0)[:, None]
@@ -463,6 +479,7 @@ def pointwise_grads_shared(
     pool_idx: torch.Tensor,   # (K,) int64 shared negative entity ids
     mask: torch.Tensor,       # (B,) batch validity
     modes: Tuple[int, ...] = (0, 1),
+    gather: Optional[Callable] = None,  # (pname, idx, role) -> rows override
 ):
     """Shared-pool POINTWISE (logistic) gradients.
 
@@ -477,9 +494,10 @@ def pointwise_grads_shared(
         cnt(pool_k) = |modes| * sum_b mask_b
 
     Returns (loss, occ, g_dense), occ as in `pairwise_grads_shared`.
+    `gather` as in `_leaves`.
     """
     role_idx, epname, rows, pool_rows, dense = _leaves(
-        model, params, pos, pool_idx
+        model, params, pos, pool_idx, gather
     )
     mask = mask.to(acc_dtype(pool_rows))
 
@@ -674,6 +692,7 @@ def pointwise_grads_shared_bilinear(
     pool_idx: torch.Tensor,   # (K,) int64 shared negative entity ids
     mask: torch.Tensor,       # (B,) batch validity
     modes: Tuple[int, ...] = (0, 1),
+    gather: Optional[Callable] = None,  # (pname, idx, role) -> rows override
 ):
     """RESCAL shared-pool POINTWISE gradients, W cotangent factored.
 
@@ -683,8 +702,10 @@ def pointwise_grads_shared_bilinear(
         dL/df_pos = -sigmoid(-f_pos) * mask          (y = +1)
         dL/df_neg =  sigmoid(f_neg) * mask           (y = -1)
         dW_{p_b}  = e_s (x) dq_b + dr_b (x) e_o
+
+    `gather` as in `_leaves`.
     """
-    (s, o, p), (es, eo, wp, pool), q, r = _bilinear_rows(params, pos, pool_idx)
+    (s, o, p), (es, eo, wp, pool), q, r = _bilinear_rows(params, pos, pool_idx, gather)
     mask = mask.to(q.dtype)
     k = pool_idx.shape[0]
     f_pos = torch.sum(q * eo, dim=-1)
@@ -859,6 +880,32 @@ def select_shared_pointwise_fn(model: KGEModel):
     return pointwise_grads_shared
 
 
+def draw_corruptions(sampler, generator: torch.Generator, batch: torch.Tensor,
+                     mask: torch.Tensor, rows: Optional[int] = None):
+    """`sampler.corruptions` for the batch, drawn for its first `rows` rows
+    only (all of them by default) and padded with masked entries (id 0,
+    validity 0) to the batch's length, so a padded batch takes the draws of
+    the unpadded one (`make_epoch_fn(pad_to=)`)."""
+    b = batch.shape[0]
+    if rows is None or rows == b:
+        return sampler.corruptions(generator, batch, mask)
+    pad = b - rows
+    return [(mode, torch.cat([repl, repl.new_zeros(pad)]),
+             torch.cat([valid, valid.new_zeros(pad)]))
+            for mode, repl, valid in sampler.corruptions(generator, batch[:rows],
+                                                         mask[:rows])]
+
+
+def draw_expanded(sampler, generator: torch.Generator, batch: torch.Tensor,
+                  mask: torch.Tensor, rows: Optional[int] = None):
+    """The sampler's expanded pairs (positives repeated, negatives, pair
+    mask) of the batch's first `rows` rows (all by default): the padding
+    rows of a padded batch, masked, have no pairs."""
+    if rows is not None:
+        batch, mask = batch[:rows], mask[:rows]
+    return sampler(generator, batch, mask)
+
+
 def make_pairwise_update(
     model: KGEModel, opt: Optimizer, margin: float, aggregate: str = "unique"
 ):
@@ -911,29 +958,38 @@ def make_pairwise_step(
     `pairwise_grads_fused`. `fused=False`, or a sampler with neither
     protocol, takes the generic path over the sampler's expanded pairs: the
     same math, more gathers and scatters.
+
+    The step is `step(state, batch, mask, rows=None)`; `rows` (given by
+    `make_epoch_fn(pad_to=)` for a padded batch) draws the iid negatives
+    for the first `rows` rows only, as for the unpadded batch. Every step
+    factory of this module takes `rows`; the shared pool's draw does not
+    depend on the batch.
     """
     if fused and hasattr(sampler, "pool"):
         shared_fn = select_shared_pairwise_fn(model)
 
-        def grads_fn(state, batch, mask):
+        def grads_fn(state, batch, mask, rows):
             pool_idx = sampler.pool(state.generator, batch, mask)
             return shared_fn(model, state.params, batch, pool_idx, mask, margin,
                              modes=sampler.modes)
     elif fused and hasattr(sampler, "corruptions"):
-        def grads_fn(state, batch, mask):
-            corr = sampler.corruptions(state.generator, batch, mask)
+        def grads_fn(state, batch, mask, rows):
+            corr = draw_corruptions(sampler, state.generator, batch, mask, rows)
             return pairwise_grads_fused(model, state.params, batch, corr, mask,
                                         margin)
     else:
         update = make_pairwise_update(model, opt, margin, aggregate)
 
-        def step(state: TrainState, batch: torch.Tensor, mask: torch.Tensor):
-            return update(state, *sampler(state.generator, batch, mask))
+        def step(state: TrainState, batch: torch.Tensor, mask: torch.Tensor,
+                 rows: Optional[int] = None):
+            return update(state, *draw_expanded(sampler, state.generator, batch,
+                                                mask, rows))
 
         return step
 
-    def step(state: TrainState, batch: torch.Tensor, mask: torch.Tensor):
-        loss, nviol, occ, g_dense = grads_fn(state, batch, mask)
+    def step(state: TrainState, batch: torch.Tensor, mask: torch.Tensor,
+             rows: Optional[int] = None):
+        loss, nviol, occ, g_dense = grads_fn(state, batch, mask, rows)
         params, opt_state = apply_gradients(
             model, opt, state.params, state.opt_state, occ, g_dense,
             aggregate, premasked=True, step=state.step,
@@ -956,8 +1012,10 @@ def make_pointwise_step(
     if not hasattr(sampler, "pool"):
         update = make_pointwise_update(model, opt, aggregate)
 
-        def step(state: TrainState, batch: torch.Tensor, mask: torch.Tensor):
-            _, neg, pair_mask = sampler(state.generator, batch, mask)
+        def step(state: TrainState, batch: torch.Tensor, mask: torch.Tensor,
+                 rows: Optional[int] = None):
+            _, neg, pair_mask = draw_expanded(sampler, state.generator, batch, mask,
+                                              rows)
             ys = torch.ones(batch.shape[0] + neg.shape[0], dtype=model.tdtype,
                             device=batch.device)
             ys[batch.shape[0]:] = -1.0
@@ -968,7 +1026,8 @@ def make_pointwise_step(
 
     grads_fn = select_shared_pointwise_fn(model)
 
-    def step(state: TrainState, batch: torch.Tensor, mask: torch.Tensor):
+    def step(state: TrainState, batch: torch.Tensor, mask: torch.Tensor,
+             rows: Optional[int] = None):
         pool_idx = sampler.pool(state.generator, batch, mask)
         loss, occ, g_dense = grads_fn(
             model, state.params, batch, pool_idx, mask, modes=sampler.modes,
@@ -1001,7 +1060,8 @@ def make_selfadv_step(
     `nviolations` is 0 (smooth loss)."""
     _need_pool(sampler, "make_selfadv_step")
 
-    def step(state: TrainState, batch: torch.Tensor, mask: torch.Tensor):
+    def step(state: TrainState, batch: torch.Tensor, mask: torch.Tensor,
+             rows: Optional[int] = None):
         pool_idx = sampler.pool(state.generator, batch, mask)
         loss, occ, g_dense = selfadv_grads_shared(
             model, state.params, batch, pool_idx, mask, margin, alpha,
@@ -1029,7 +1089,8 @@ def make_ce_step(
     and the post-constraint (TransE's normless1) apply to the whole table.
     `nviolations` is 0."""
 
-    def step(state: TrainState, batch: torch.Tensor, mask: torch.Tensor):
+    def step(state: TrainState, batch: torch.Tensor, mask: torch.Tensor,
+             rows: Optional[int] = None):
         loss, grads = ce_grads_all(model, state.params, batch, mask, directions,
                                    label_smoothing)
         params, opt_state = dict(state.params), dict(state.opt_state)
@@ -1061,7 +1122,8 @@ def make_sampled_ce_step(
     logits = getattr(sampler, "logits", None)
     log_q_tables: dict = {}  # device -> (n_e,) proposal log-probs
 
-    def step(state: TrainState, batch: torch.Tensor, mask: torch.Tensor):
+    def step(state: TrainState, batch: torch.Tensor, mask: torch.Tensor,
+             rows: Optional[int] = None):
         pool_idx = sampler.pool(state.generator, batch, mask)
         log_q = None
         if logits is not None:
@@ -1084,16 +1146,26 @@ def make_sampled_ce_step(
     return step
 
 
-def make_epoch_fn(step_fn: Callable, n_triples: int, nbatches: int):
+def make_epoch_fn(step_fn: Callable, n_triples: int, nbatches: int, pad_to: int = 1):
     """Epoch: shuffle, split into `nbatches` masked minibatches of one size
     (the last padded with masked rows), run `step_fn` over them.
 
     The returned `epoch(state, xs, perm=None)` takes xs as an (n_triples, 3)
     int64 tensor; `perm` replaces the generator's permutation (parity tests
     pass the JAX package's). Metrics are stacked over the steps.
+
+    `pad_to` (the mesh steps, whose batch must divide the 'data' axis) pads
+    EVERY batch with masked rows up to a multiple of it; the batch
+    membership of real rows does not change. A padded batch's step is
+    called with `rows=` its unpadded size, so its iid draws are those of
+    the unpadded batch (torch's generators are not position-stable over a
+    longer draw), and masked rows add exact zeros: the trajectory is the
+    `pad_to=1` one.
     """
     batch_size = -(-n_triples // nbatches)
     padded = nbatches * batch_size
+    extra = (-batch_size) % pad_to
+    kw = {"rows": batch_size} if extra else {}
 
     def epoch(state: TrainState, xs: torch.Tensor,
               perm: Optional[torch.Tensor] = None):
@@ -1106,10 +1178,14 @@ def make_epoch_fn(step_fn: Callable, n_triples: int, nbatches: int):
         masks = (
             torch.arange(padded, device=xs.device) < n_triples
         ).to(torch.float32).reshape(nbatches, batch_size)
-        batches = xs[pad_idx.reshape(nbatches, batch_size)]
+        b_idx = pad_idx.reshape(nbatches, batch_size)
+        if extra:
+            b_idx = torch.nn.functional.pad(b_idx, (0, extra))
+            masks = torch.nn.functional.pad(masks, (0, extra))
+        batches = xs[b_idx]
         metrics = []
         for b in range(nbatches):
-            state, m = step_fn(state, batches[b], masks[b])
+            state, m = step_fn(state, batches[b], masks[b], **kw)
             metrics.append(m)
         return state, StepMetrics(
             loss=torch.stack([m.loss for m in metrics]),

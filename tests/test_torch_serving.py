@@ -19,6 +19,7 @@ from skge_tpu import serving as jserving
 from skge_tpu.models import MODELS as JMODELS
 from skge_torch import serving
 from skge_torch.models import MODELS as TMODELS
+from skge_torch.parallel import Mesh, ShardGroup
 
 torch.set_num_threads(1)
 
@@ -198,8 +199,12 @@ def test_top_k_rule_against_a_stable_sort():
 def test_mesh_and_missing_gpu_refused():
     jm, tm = models("transe")
     params = host_params(jm)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        serving.LinkPredictor(tm, params, mesh=object(), device="cpu")
+    # the candidate-sharded engine needs a model axis that divides n_e
+    cpu = torch.device("cpu")
+    mesh = Mesh(shape={"data": 1, "model": N_E + 1}, data=ShardGroup(None, 0, 1, cpu),
+                model=ShardGroup(None, 0, N_E + 1, cpu), rank=0, device=cpu)
+    with pytest.raises(ValueError, match="not divisible"):
+        serving.LinkPredictor(tm, params, mesh=mesh)
     with pytest.raises(ValueError, match="unknown quantize"):
         serving.LinkPredictor(tm, params, quantize="int4", device="cpu")
     if not torch.cuda.is_available():

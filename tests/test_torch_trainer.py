@@ -26,6 +26,7 @@ from skge_torch import (RESCAL, RandomModeSampler, TrainConfig, Trainer, TransE,
                         load_checkpoint)
 from skge_torch.convert import state_from_numpy
 from skge_torch.data import synthetic_kg
+from skge_torch.parallel import Mesh, ShardGroup
 from skge_torch.utils.metrics import profile_trace
 
 torch.set_num_threads(1)
@@ -123,7 +124,12 @@ def test_no_silent_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(model, sampler, TrainConfig(), device="cuda")
     assert Trainer(model, sampler, TrainConfig(), device="cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="queue 9"):
-        Trainer(model, sampler, TrainConfig(), device="cpu", mesh=object())
+    # a mesh trainer runs on the mesh's device, never on another
+    cpu = torch.device("cpu")
+    mesh = Mesh(shape={"data": 1, "model": 1}, data=ShardGroup(None, 0, 1, cpu),
+                model=ShardGroup(None, 0, 1, cpu), rank=0, device=cpu)
+    assert Trainer(model, sampler, TrainConfig(), mesh=mesh).device == cpu
+    with pytest.raises(ValueError, match="the mesh runs on cpu"):
+        Trainer(model, sampler, TrainConfig(), device="cuda", mesh=mesh)
     with pytest.raises(ValueError, match="unknown loss"):
         Trainer(model, sampler, TrainConfig(loss="hinge"), device="cpu")
