@@ -39,13 +39,17 @@ Phases, each fatal:
    the partitioned step's one scatter at 11a's shape (T = 16,545 into the
    16,296 rows of the stacked shard and relation tables) and full CE's
    (T = 14,496),
-   and timed beside `index_add_` alone; its scalar path also timed at D = 151
+   and timed beside `index_add_` alone; compat RESCAL's W scatter on the
+   iid pairwise path (13b: T = 19,328, 4 rows a positive, R = 1,345,
+   D = 10,000, no count channel) and its counts (D = 1);
+   its scalar path also timed at D = 151
    and at RESCAL's W counts (D = 1), beside `index_add_`;
    `segment_outer_sum` equal bit for bit to its in-order plain version and to itself in a second call, also at ranks 1, 3 and 4,
    d = 37, 12 and 1,100, and with half of the occurrences on one row at
    ranks 1, 3 and 4; timed at WN18's 18 relations, with half and with all
    of the occurrences on one row and with Zipf-distributed ids, beside its
-   grouping alone;
+   grouping alone, and at FB15k's shape beside the nearest library
+   composite (`einsum` of the outer products, then `index_add_`);
 4. training, each path with the launch counts set to 0 just before it and
    read just after, exact launch counts (every gradient scatter on K1's
    16-byte path), finite losses and params on the
@@ -209,6 +213,31 @@ Phases, each fatal:
       int8: the same top-10 ids and values; `FilteredRankingEval(mesh=)`
       against the unsharded ranking of 1,000 test triples by the 1e-5 gap
       rule.
+13. the reference class API (`skge_torch.compat`) and `compute_dtype`,
+   each path with the launch counts set to 0 just before it and held to
+   their exact values after, aggregate "dense_pallas":
+   13a README's example, HolE((40,943, 40,943, 18), 150, rparam=0.1) with
+      `PairwiseStochasticTrainer` (margin 0.2, the batch of 100 batches)
+      and `sample.RandomModeSampler(...).sample` on WN18's shape, 2 epochs
+      of 20 steps: the device path (a host draw fails the run), 1 K1 a
+      step, a `post_epoch` callback each epoch, one step of the trainer's
+      step function on the card against the CPU from its trained state;
+      tests/test_compat.py's TransE flow on the card: violations below
+      0.6x the first epoch's, normless1;
+   13b compat RESCAL ncomp 100 with `sample.LCWASampler` on FB15k's shape,
+      one epoch of 20 steps of 4,832: the iid RESCAL path, 3 K1 a step (E
+      and W's 10,000-wide rows on the 16-byte path, W's counts), busy and
+      idle share and top operators, one step against the CPU;
+   13c `StochasticTrainer` with LCWA, the host loop for an arbitrary
+      callable, the pre-split pairs (TransE, normless1), 3 steps each;
+      `Model` and `Config` saved and loaded on the card;
+   13d `compute_dtype="bfloat16"` against fp32 in the same call:
+      full-rank TransR's shared-pool step on 512 positives (3 K1 a step),
+      RESCAL's at k = 1,024 (1 K2 and 2 K1 a step), `LinkPredictor` top-10
+      over HolE at WN18's shape: step or batch times, the largest score
+      gap to fp32 beside the JAX package's bound (0.03, checked for HolE),
+      the card's bf16 scores within 1e-4 of the CPU's bf16 path, top-10
+      overlap; params and accumulators stay fp32.
 
 Prints one JSON line with the kernel table, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.
@@ -232,6 +261,7 @@ import statistics
 import subprocess
 import sys
 import time
+import timeit
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
@@ -239,6 +269,8 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from skge_torch import compat
+from skge_torch import sample as host_sample
 from skge_torch import (ERMLP, MODELS, RESCAL, AdaGrad, Adam, BernoulliSampler,
                         CorruptedSampler, DistMult, FilteredRankingEval, HolE,
                         LCWASampler, LinkPredictor, OutOfCoreTrainer,
@@ -434,6 +466,17 @@ MESH_STORE = f"{OUT}/mesh_group_store"
 MESH_QUERIES = 1024        # 12d
 SERVE = SimpleNamespace(nqueries=59_071, batch=1024, k=10, chunk=4096,
                         cpu_queries=1024, profile_batches=5)
+# phase 13: the reference class API (`skge_torch.compat`) at full width and
+# cut depth: each trainer's batch is that of 100 batches over the whole graph
+# (WN18: 1,415 triples, FB15k: 4,832), over the first `steps` batches' worth of
+# triples; README's example (HolE ncomp 150, rparam 0.1, margin 0.2) on WN18,
+# RESCAL ncomp 100 with the LCWA sampler on FB15k; `few` steps a path in 13c
+COMPAT = SimpleNamespace(nbatches=100, steps=20, epochs=2, few=3, seed=0)
+# 13d: compute_dtype="bfloat16" against fp32: full-rank TransR (phase 9a) on
+# 512 positives and RESCAL (phase 4b) on a shared pool of k = 1,024, `steps`
+# timed steps each; HolE's top-10 serving on `queries` queries
+BF16 = SimpleNamespace(k=1024, steps=10, transr_positives=512, queries=8192)
+BF16_BOUND = 0.03  # tests/test_training.py:187, the JAX package's bf16 score bound
 # the JAX package's out-of-core learning gates (tests/test_outofcore.py),
 # at their sizes and thresholds
 OOC_MARGIN_GATE = dict(n_entities=600, n_relations=8, n_train=3000, n_valid=0,
@@ -548,12 +591,15 @@ def bound(nbytes, flops) -> tuple[float, str]:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def timed_shape(what, times, nbytes, flops) -> dict:
-    """One timed shape of a kernel: its times, its bound and its share."""
+def timed_shape(what, times, nbytes, flops, library="index_add_") -> dict:
+    """One timed shape of a kernel: its times, its bound and its share;
+    `library` names the PyTorch call (or composite) timed as "library"."""
     b_ms, b_by = bound(nbytes, flops)
     shape = {"shape": what, "ms": times["kernel"], "plain_ms": times.get("plain"),
              "library_ms": times.get("library"), "bound_ms": b_ms, "bound_by": b_by,
              "bound_share": b_ms / times["kernel"]}
+    if "library" in times:
+        shape["library_call"] = library
     if "grouping" in times:  # K2's index preparation, part of "ms"
         shape["grouping_ms"] = times["grouping"]
     log(f"[3] {what}: bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.2f} MB, "
@@ -588,7 +634,8 @@ def check_segment_sum(name, idx, grads, nrows, vector) -> float:
 # the 16-byte path's timed shapes, each beside the plain version
 VECTOR_TIMED = ("slice", "iid", "selfadv", "ComplEx, SimplE", "QuatE", "TransR's M",
                 "out-of-core TransE", "out-of-core RESCAL's E", "partitioned TransE",
-                "partitioned full CE", "RESCAL's E", "mesh iid pointwise")
+                "partitioned full CE", "RESCAL's E", "mesh iid pointwise",
+                "compat RESCAL's W")
 
 
 def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
@@ -629,6 +676,11 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
     # each triple's s and o into E and its relation into R
     t_rescal_e = 2 * _batch_size(RESCAL_PAIRWISE) + RESCAL_PAIRWISE.k
     t_mesh_pw = 3 * 3 * _batch_size(TRANSE)
+    # compat RESCAL's iid pairwise step (13b): W's row of the positive and of
+    # the negative triple of each of the batch's 2 pairs a positive, d^2 wide
+    # (the two-scatter branch: no count channel, the counts at D = 1)
+    t_compat_w = 4 * _batch_size(RESCAL_PAIRWISE)
+    compat_w = RESCAL_PAIRWISE.ncomp ** 2
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = [  # name, T, R, D, low id, high id, storage offset, 16-byte path
         ("slice", t_slice, rows, width, 0, rows, 0, True),
@@ -644,6 +696,8 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
         ("partitioned full CE", 3 * b_part, rows, width, 0, rows, 0, True),
         ("RESCAL's E", t_rescal_e, e, rescal_w, 0, e, 0, True),
         ("mesh iid pointwise", t_mesh_pw, rows, width, 0, rows, 0, True),
+        ("compat RESCAL's W", t_compat_w, r, compat_w, 0, r, 0, True),
+        ("compat RESCAL's W counts", t_compat_w, r, 1, 0, r, 0, False),
         ("ids<0 and >=R dropped", t_slice, rows, width, -50, rows + 50, 0, True),
         ("D=151 scalar path", t_slice, rows, width - 1, 0, rows, 0, False),
         ("misaligned view", t_slice, rows, width, 0, rows, 1, False),
@@ -675,7 +729,7 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
         shapes.append(timed_shape(
             f"T={t}, R={nrows}, D={d}" + (", scalar path" if scalar else "")
             + (f", {name}" if name.startswith(("out-of-core", "partitioned", "RESCAL",
-                                                "mesh")) else ""), times,
+                                                "mesh", "compat")) else ""), times,
             nbytes=8 * t + 4 * t * d + 4 * nrows * d, flops=t * d))
     return worst, shapes
 
@@ -700,6 +754,14 @@ def check_segment_outer_sum(name, idx, us, vs, nrows) -> float:
         f"{'equal to the plain version and to itself' if ok else 'MISMATCH'}")
     check(ok, f"segment_outer_sum bit-equal to its plain version and itself ({name})")
     return err
+
+
+def _outer_library(idx, us, vs, nrows):
+    """K2's library yardstick, a composite (no single PyTorch call computes
+    it): the (T, d, d) outer products by `einsum`, then `index_add_`."""
+    d = us[0].shape[1]
+    outer = torch.einsum("itd,ite->tde", torch.stack(us), torch.stack(vs))
+    return torch.zeros(nrows, d, d, device=idx.device).index_add_(0, idx, outer)
 
 
 def segment_outer_sum_checks(dev, verify=True) -> tuple[float, list]:
@@ -758,13 +820,15 @@ def segment_outer_sum_checks(dev, verify=True) -> tuple[float, list]:
             fns["grouping"] = lambda i, _u, _v, n: cuda_outer.group_by_row(i, n)
         if name in ("slice", "out-of-core"):
             fns["plain"] = cuda_outer.segment_outer_sum_reference
+        if name == "slice":  # no one PyTorch call: the nearest composite
+            fns["library"] = _outer_library
         times = time_rounds(fns, timed[name], f"segment_outer_sum at T={t}, R={nrows}, "
                             f"d={dd}, rank 2 ({name})", n_plain=3)
         shapes.append(timed_shape(
             f"T={t}, R={nrows}, d={dd}, rank 2"
             + ("" if name in ("slice", "WN18 R=18") else f", {name}"),
             times, nbytes=8 * t + 2 * len(us) * 4 * t * dd + 4 * nrows * dd * dd,
-            flops=2 * len(us) * t * dd * dd))
+            flops=2 * len(us) * t * dd * dd, library="einsum + index_add_ (composite)"))
     return worst, shapes
 
 
@@ -2335,7 +2399,9 @@ def partitioned_against_cpu(tr, state0, dev, group, cpu_group) -> None:
     pool = FixedPool(torch.randint(0, tr.model.n_entities, (PART.k,), generator=gen))
     out = {}
     for what, g in (("card", group), ("cpu", cpu_group)):
-        st = ppart.shard_state_partitioned(start, tr.model, g)
+        # the pool is fixed: a fresh generator on each group's device
+        st = ppart.shard_state_partitioned(start, tr.model, g,
+                                           generator=torch.Generator(device=g.device))
         step = _part_step("margin", tr.model, tr.opt, pool, g, tr.cap)
         t0 = time.perf_counter()
         out[what] = step(st, batch.to(g.device), mask.to(g.device))
@@ -2397,7 +2463,8 @@ def partitioned_losses(graph, dev, group, cpu_group, launches) -> None:
         got = {}
         for what, g in (("card", group), ("cpu", cpu_group)):
             step = _part_step(loss, tr.model, opt, pool, g, min(tr.cap, b), **args)
-            st = ppart.shard_state_partitioned(start, tr.model, g)
+            st = ppart.shard_state_partitioned(start, tr.model, g,
+                                               generator=torch.Generator(device=g.device))
             got[what] = step(st, batch.to(g.device), mask.to(g.device))[0]
         _held_to_cpu(f"11c {tag} card vs cpu", got["card"], got["cpu"])
 
@@ -2815,6 +2882,337 @@ def mesh_phase(graph, dev, launches) -> None:
 
 
 
+class _NoHostDraws:
+    """A host sampler's `rng` that fails every draw: the compat trainers
+    must take the device path for the port's own sampler classes."""
+
+    def __getattr__(self, name):
+        raise RuntimeError("FAILED: a compat trainer drew negatives on the host")
+
+
+def _cut(graph, steps, nbatches=COMPAT.nbatches):
+    """(batch size of `nbatches` over the whole graph, the first `steps`
+    batches' worth of its triples as (s, o, p) tuples)."""
+    b = -(-len(graph.train) // nbatches)
+    return b, [tuple(map(int, t)) for t in graph.train[: steps * b]]
+
+
+def _compat_fit(dev, tag, what, trainer, xs, ys, want, launches) -> list:
+    """`trainer.fit` with the counts set to 0 just before and read just
+    after, held to `want` on the card; the params written back to the
+    model's numpy mirrors. Returns [(violations, loss, seconds)] an epoch."""
+    epochs = []
+    trainer.post_epoch.append(lambda t: epochs.append(
+        (t.nviolations, t.loss, timeit.default_timer() - t.epoch_start)) or True)
+    _sync(dev)
+    reset_counts()
+    trainer.fit(xs, ys)
+    _sync(dev)
+    counts = read_counts()
+    b = -(-len(xs) // min(trainer.nbatches, len(xs)))
+    for e, (nv, loss, dt) in enumerate(epochs):
+        log(f"[{tag}] {what} epoch {e + 1}: violations {nv}  loss {loss:.6e}  {dt:.3f} s  "
+            f"step {1e3 * dt / min(trainer.nbatches, len(xs)):.3f} ms (batch {b})")
+    log(f"[{tag}] kernel launches {counts}")
+    check(dev.type != "cuda" or counts == want, f"{tag} {what}: launches {counts}, want {want}")
+    for k in launches:
+        launches[k] += counts[k]
+    for name, p in trainer._state.params.items():
+        check(p.device.type == dev.type and bool(torch.isfinite(p).all()),
+              f"{tag}: params[{name!r}] finite on {dev}")
+        check(np.array_equal(trainer.model.params[name], p.cpu().numpy()),
+              f"{tag}: params[{name!r}] written back to the model")
+    return epochs
+
+
+def _compat_against_cpu(tag, trainer, sampler, xs, dev) -> None:
+    """One step of the trainer's own step function from its trained state
+    (warm accumulators) on the card and on the CPU, the same batch and the
+    same expanded pairs (drawn once on the CPU): within STEP_TOL, the same
+    violations."""
+    b = -(-len(xs) // trainer.nbatches)
+    batch = torch.as_tensor(np.asarray(xs[:b]), dtype=torch.int64)
+    mask = torch.ones(b)
+    pairs = sampler(torch.Generator().manual_seed(COMPAT.seed + 3), batch, mask)
+    step = trainer.make_step(FixedExpanded(*pairs))
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        out[where.type] = step(_state_on(trainer._state, where), batch.to(where),
+                               mask.to(where))
+        _sync(where)
+        log(f"[{tag}] the step on the {where.type}: {time.perf_counter() - t0:.3f} s")
+    (card, card_m), (cpu, cpu_m) = out[dev.type], out["cpu"]
+    _held_to_cpu(tag + " card vs cpu", card, cpu,
+                 (int(card_m.nviolations), int(cpu_m.nviolations)))
+
+
+def compat_readme(graph, dev, launches):
+    """13a: README's class-API example on WN18's shape: HolE ncomp 150,
+    rparam 0.1, `PairwiseStochasticTrainer` (100 batches' batch, margin 0.2)
+    with `sample.RandomModeSampler(1, [0, 1], xs, sz).sample`, 2 epochs at
+    cut depth, a `post_epoch` callback: the device path (no host draw), 1 K1
+    a step on the 16-byte path, then one step against the CPU. On this
+    uniform graph every pair still violates the sigmoid margin after 2 such
+    epochs (in both packages), so the learning check is `compat_learning`'s.
+    Returns the trained model."""
+    sz = (graph.n_entities, graph.n_entities, graph.n_relations)
+    full = [tuple(map(int, t)) for t in graph.train]
+    _, xs = _cut(graph, COMPAT.steps)
+    sampler = host_sample.RandomModeSampler(1, [0, 1], full, sz)
+    sampler.rng = _NoHostDraws()
+    model = compat.HolE(sz, 150, rparam=0.1, device=dev)
+    trainer = compat.PairwiseStochasticTrainer(
+        model, nbatches=COMPAT.steps, max_epochs=COMPAT.epochs, margin=0.2,
+        samplef=sampler.sample, aggregate="dense_pallas", device=dev)
+    n = COMPAT.steps * COMPAT.epochs
+    epochs = _compat_fit(dev, "13a", "HolE README example", trainer, xs, [1.0] * len(xs),
+                         _launches(n, 0, n), launches)
+    check(len(epochs) == COMPAT.epochs and all(np.isfinite(e[1]) for e in epochs),
+          "13a: a finite loss every epoch")
+    dev_sampler = compat._device_sampler(sampler.sample, sz, torch.device("cpu"))
+    check(isinstance(dev_sampler, RandomModeSampler), "13a: the device sampler")
+    _compat_against_cpu("13a", trainer, dev_sampler, xs, dev)
+    return model
+
+
+def compat_learning(dev, launches) -> None:
+    """13a: tests/test_compat.py's README-style flow on the card: TransE
+    ncomp 24 on `synthetic_kg(80, 5, 600, seed=11)`, random-mode negatives,
+    10 batches, 15 epochs, margin 0.3: the last epoch's violations below
+    0.6 x the first's, E's rows in the unit ball (normless1)."""
+    g = synthetic_kg(80, 5, 600, seed=11)
+    sz = (80, 80, 5)
+    xs = [tuple(map(int, t)) for t in g.train]
+    sampler = host_sample.RandomModeSampler(1, [0, 1], xs, sz)
+    sampler.rng = _NoHostDraws()
+    model = compat.TransE(sz, 24, device=dev)
+    trainer = compat.PairwiseStochasticTrainer(
+        model, nbatches=10, max_epochs=15, margin=0.3, samplef=sampler.sample,
+        aggregate="dense_pallas", device=dev)
+    epochs = _compat_fit(dev, "13a", "TransE learning", trainer, xs, [1.0] * len(xs),
+                         _launches(150, 0, 150), launches)
+    norm = float(np.linalg.norm(model.E, axis=1).max())
+    log(f"[13a] TransE learning: violations {epochs[0][0]} -> {epochs[-1][0]}, max row "
+        f"norm of E {norm:.7f}")
+    check(epochs[-1][0] < 0.6 * epochs[0][0], "13a: violations below 0.6 x epoch 1's")
+    check(norm <= 1.0 + 1e-5, "13a: normless1: max row norm of E <= 1 + 1e-5")
+
+
+def compat_rescal(graph, dev, launches) -> None:
+    """13b: compat RESCAL ncomp 100 on FB15k's shape with
+    `sample.LCWASampler(1, [0, 1], xs, sz)` over every train triple, one
+    epoch at cut depth: the iid RESCAL path, whose W gradient (d^2 =
+    10,000-wide rows) goes through K1's two-scatter branch: 3 K1 a step,
+    2 on the 16-byte path (E, W) and W's counts on the scalar one; then
+    the step's busy time and top operators, and one step against the CPU."""
+    sz = (graph.n_entities, graph.n_entities, graph.n_relations)
+    full = [tuple(map(int, t)) for t in graph.train]
+    b, xs = _cut(graph, COMPAT.steps)
+    check(b == _batch_size(RESCAL_PAIRWISE),
+          f"13b: W's T = 4 x the batch of {b}, as phase 3 checked K1 at")
+    t0 = time.perf_counter()
+    sampler = host_sample.LCWASampler(1, [0, 1], full, sz)
+    sampler.rng = _NoHostDraws()
+    log(f"[13b] the LCWA sampler over {len(full)} triples in {time.perf_counter() - t0:.2f} s")
+    model = compat.RESCAL(sz, 100, device=dev)
+    trainer = compat.PairwiseStochasticTrainer(
+        model, nbatches=COMPAT.steps, max_epochs=1, samplef=sampler.sample,
+        aggregate="dense_pallas", device=dev)
+    n = COMPAT.steps
+    epochs = _compat_fit(dev, "13b", "RESCAL LCWA", trainer, xs, [1.0] * len(xs),
+                         _launches(3 * n, 0, 2 * n), launches)
+    if dev.type == "cuda":
+        step = trainer.make_step(compat._device_sampler(sampler.sample, sz, dev))
+        batches = torch.as_tensor(np.asarray(xs[: 5 * b]), dtype=torch.int64,
+                                  device=dev).reshape(5, b, 3)
+        profile(step, trainer._state, batches, torch.ones(b, device=dev),
+                1e3 * epochs[0][2] / n, "13b")
+    cpu_sampler = compat._device_sampler(sampler.sample, sz, torch.device("cpu"))
+    _compat_against_cpu("13b", trainer, cpu_sampler, xs, dev)
+
+
+def compat_entry_points(graph, model, dev, launches) -> None:
+    """13c: the class API's other entry points on WN18's shape, `few` steps
+    each at the 13a batch: `StochasticTrainer` with the LCWA sampler, the
+    host loop for an arbitrary callable, the pre-split pairs (TransE,
+    normless1), and `Model` / `Config` save and load round trips on the
+    card (13a's model)."""
+    sz = (graph.n_entities, graph.n_entities, graph.n_relations)
+    full = [tuple(map(int, t)) for t in graph.train]
+    b, xs = _cut(graph, COMPAT.few)
+    few = COMPAT.few
+    lcwa = host_sample.LCWASampler(1, [0, 1], full, sz)
+    lcwa.rng = _NoHostDraws()
+    tr = compat.StochasticTrainer(compat.HolE(sz, 150, rparam=0.1, device=dev),
+                                  nbatches=few, max_epochs=1, samplef=lcwa.sample,
+                                  aggregate="dense_pallas", device=dev)
+    _compat_fit(dev, "13c", "StochasticTrainer LCWA", tr, xs, [1.0] * len(xs),
+                _launches(few, 0, few), launches)
+
+    inner = host_sample.RandomModeSampler(1, [0, 1], full, sz)
+    inner.rng = np.random.default_rng(COMPAT.seed)
+    calls = []
+
+    def samplef(xys):  # any callable: the host loop
+        calls.append(len(xys))
+        return inner.sample(xys)
+
+    tr = compat.PairwiseStochasticTrainer(compat.HolE(sz, 150, device=dev), nbatches=few,
+                                          max_epochs=1, margin=0.2, samplef=samplef,
+                                          aggregate="dense_pallas", device=dev)
+    _compat_fit(dev, "13c", "host samplef", tr, xs, [1.0] * len(xs),
+                _launches(few, 0, few), launches)
+    check(sum(calls) == len(xs), "13c: the host loop called samplef for every positive")
+
+    rng = np.random.default_rng(COMPAT.seed)
+    neg = [(int(rng.integers(sz[0])), int(rng.integers(sz[0])), p) for _, _, p in xs]
+    tr = compat.PairwiseStochasticTrainer(compat.TransE(sz, 150, device=dev), nbatches=few,
+                                          max_epochs=1, margin=1.0,
+                                          aggregate="dense_pallas", device=dev)
+    _compat_fit(dev, "13c", "pre-split pairs", tr, xs + neg, [1.0] * len(xs) + [-1.0] * len(neg),
+                _launches(few, 0, few), launches)
+    norm = float(np.linalg.norm(tr.model.E, axis=1).max())
+    log(f"[13c] pre-split pairs: max row norm of E {norm:.7f}")
+    check(norm <= 1.0 + 1e-5, "13c: normless1: max row norm of E <= 1 + 1e-5")
+
+    os.makedirs(OUT, exist_ok=True)
+    test = graph.test[:1000]
+    want = model.score_triples(test)
+    model.save(f"{OUT}/13c_model.bin")
+    loaded = compat.Model.load(f"{OUT}/13c_model.bin", device=dev)
+    check(type(loaded) is compat.HolE and loaded.device == model.device
+          and np.array_equal(loaded.score_triples(test), want), "13c: Model save/load")
+    compat.Config(model, tr).save(f"{OUT}/13c_config.bin")
+    cfg = compat.Config.load(f"{OUT}/13c_config.bin", device=dev)
+    check(type(cfg.trainer) is compat.PairwiseStochasticTrainer
+          and cfg.trainer.hyperparams == tr.hyperparams and cfg.trainer.device == dev
+          and np.array_equal(cfg.model.score_triples(test), want), "13c: Config save/load")
+    log(f"[13c] Model and Config saved and loaded on the {dev.type}: the same scores of "
+        f"{len(test)} test triples")
+
+
+def _score_gaps(tag, what, make, params, score, dev) -> float:
+    """The largest gap of bf16 scores to fp32's on the card, beside the JAX
+    package's bound, and of the card's bf16 scores to the CPU's bf16 path
+    (the same bf16 inputs: fp32 sums in another order). Returns the first."""
+    on = {"cuda": {k: v.to(dev) for k, v in params.items()},
+          "cpu": {k: v.cpu() for k, v in params.items()}}
+    with torch.no_grad():
+        exact = score(make(""), on[dev.type]).float()
+        fast = score(make("bfloat16"), on[dev.type]).float()
+        cpu = score(make("bfloat16"), on["cpu"]).float()
+    gap = float((fast - exact).abs().max())
+    gap_cpu = float((fast.cpu() - cpu).abs().max())
+    top = float(exact.abs().max())
+    log(f"[{tag}] {what}: largest |bf16 - fp32| score gap {gap:.3e} (the JAX package's "
+        f"bound {BF16_BOUND}; largest |score| {top:.3e}); card bf16 against the CPU's "
+        f"bf16 path {gap_cpu:.3e}")
+    check(gap_cpu <= 1e-4 * max(1.0, top), f"{tag} {what}: card bf16 within 1e-4 of the CPU's")
+    return gap
+
+
+def bf16_step(tag, what, make, graph, positives, want, dev, launches) -> None:
+    """13d: one shared-pool margin step in fp32 and in bf16 from the same
+    state, batch and pool, `steps` timed calls each with the counts held to
+    `want` a step; params and accumulators stay fp32."""
+    gen = torch.Generator().manual_seed(COMPAT.seed + 4)
+    batch = torch.as_tensor(graph.train[:positives], dtype=torch.int64, device=dev)
+    mask = torch.ones(positives, device=dev)
+    pool = torch.randint(0, graph.n_entities, (BF16.k,), generator=gen)
+    opt = AdaGrad(lr=0.1)
+    state = init_state(make(""), opt, torch.Generator(device=dev).manual_seed(COMPAT.seed))
+    ms = {}
+    for cd in ("", "bfloat16"):
+        step = make_pairwise_step(make(cd), opt, FixedPool(pool), margin=1.0,
+                                  aggregate="dense_pallas")
+        step(state, batch, mask)  # warm-up
+        _sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(BF16.steps):
+            new, m = step(state, batch, mask)
+        _sync(dev)
+        ms[cd or "fp32"] = 1e3 * (time.perf_counter() - t0) / BF16.steps
+        counts = read_counts()
+        check(dev.type != "cuda" or counts == {k: v * BF16.steps for k, v in want.items()},
+              f"{tag} {what} {cd or 'fp32'}: launches {counts}, want {want} a step")
+        for k in launches:
+            launches[k] += counts[k]
+        for name, p in new.params.items():
+            check(p.dtype == torch.float32 and new.opt_state[name]["p2"].dtype == torch.float32
+                  and bool(torch.isfinite(p).all()), f"{tag} {what}: fp32 finite {name}")
+        log(f"[{tag}] {what} {cd or 'fp32'}: violations {int(m.nviolations)}, kernel "
+            f"launches {counts} over {BF16.steps} steps")
+    log(f"[{tag}] {what}: step fp32 {ms['fp32']:.3f} ms, bf16 {ms['bfloat16']:.3f} ms "
+        f"(host clock, {BF16.steps} calls, {positives} positives, k = {BF16.k})")
+
+    def score(model, params):
+        b = batch[: min(positives, 1024)].to(params["E"].device)
+        rows = model.gather_rows(params, b[:, 0], b[:, 1], b[:, 2])
+        pool_rows = params["E"][pool.to(b.device)]
+        dense = model.dense_params(params)
+        return torch.cat([model.score_pool(rows, pool_rows, dense, mode) for mode in (0, 1)])
+
+    _score_gaps(tag, what, make, state.params, score, dev)
+
+
+def bf16_serving(graph, dev) -> None:
+    """13d: `LinkPredictor` top-10 over HolE ncomp 150 at WN18's shape (its
+    initial params, seeded), filtered by the train triples, exact (fp32)
+    against compute_dtype bfloat16: batch time, top-10 overlap, score
+    gaps."""
+    hole = lambda cd: HolE(graph.n_entities, graph.n_relations, 150,  # noqa: E731
+                           compute_dtype=cd)
+    params = hole("").init_params(torch.Generator(device=dev).manual_seed(COMPAT.seed))
+    rng = np.random.default_rng(0)
+    queries = np.stack([rng.integers(0, graph.n_entities, BF16.queries),
+                        rng.integers(0, graph.n_relations, BF16.queries)], axis=1)
+    exact = LinkPredictor(hole(""), params, known=graph.train,
+                          batch_size=SERVE.batch, device=dev)
+    fast = LinkPredictor(hole("bfloat16"), params, batch_size=SERVE.batch, device=dev)
+    fast._index = exact._index
+    res, ms = {}, {}
+    for what, pred in (("fp32", exact), ("bf16", fast)):
+        pred.top_k(queries[: SERVE.batch], SERVE.k)  # warm-up
+        _sync(dev)
+        t0 = time.perf_counter()
+        res[what] = pred.top_k(queries, SERVE.k)
+        _sync(dev)
+        ms[what] = 1e3 * (time.perf_counter() - t0) / (BF16.queries // SERVE.batch)
+        check(np.isfinite(res[what].scores).all(), f"13d serving {what}: finite scores")
+    overlap = np.mean([len(set(a) & set(b)) / SERVE.k
+                       for a, b in zip(res["fp32"].entities, res["bf16"].entities)])
+    log(f"[13d] LinkPredictor top-{SERVE.k} over HolE (WN18's shape), {BF16.queries} "
+        f"queries: fp32 {ms['fp32']:.3f} ms a batch of {SERVE.batch}, bf16 "
+        f"{ms['bf16']:.3f} ms; mean top-{SERVE.k} overlap with exact {overlap:.4f}")
+
+    def score(m, p):
+        q = torch.as_tensor(queries[: SERVE.batch], dtype=torch.int64, device=p["E"].device)
+        rows = m.gather_rows(p, q[:, 0], q[:, 0], q[:, 1])
+        return m.score_pool(rows, p["E"], m.dense_params(p), 1)
+
+    gap = _score_gaps("13d", "HolE serving", hole, params, score, dev)
+    check(gap <= BF16_BOUND, f"13d HolE serving: bf16 scores within {BF16_BOUND} of fp32")
+
+
+def compat_phase(fb15k, wn18, dev, launches) -> None:
+    """Phase 13: the reference class API and compute_dtype."""
+    model = compat_readme(wn18, dev, launches)
+    compat_learning(dev, launches)
+    compat_rescal(fb15k, dev, launches)
+    compat_entry_points(wn18, model, dev, launches)
+    transr = lambda cd: MODELS["transr"](fb15k.n_entities, fb15k.n_relations,  # noqa: E731
+                                         150, compute_dtype=cd)
+    rescal = lambda cd: RESCAL(fb15k.n_entities, fb15k.n_relations,  # noqa: E731
+                               ncomp=100, compute_dtype=cd)
+    bf16_step("13d", "full-rank TransR", transr, fb15k, BF16.transr_positives,
+              _launches(3, 0, 2), dev, launches)
+    bf16_step("13d", "RESCAL", rescal, fb15k, _batch_size(RESCAL_PAIRWISE),
+              _launches(2, 1, 1), dev, launches)
+    bf16_serving(wn18, dev)
+
+
 def main(argv) -> int:
     if argv not in ([], ["--kernel-times"]):
         print("usage: python3 chip_smoke.py [--kernel-times]", file=sys.stderr)
@@ -2854,7 +3252,7 @@ def main(argv) -> int:
                          unique_too=cfg.model == "hole")
         evaluate(ds, model, state, dev, "6" + tag)
     t_eval = time.perf_counter()
-    fb15k = graphs["fb15k"]
+    fb15k, wn18 = graphs["fb15k"], graphs["wn18"]
     del graphs, trained
     runs = surface(dev, launches)
     t_surface = time.perf_counter()
@@ -2894,6 +3292,8 @@ def main(argv) -> int:
     partitioned(fb15k, dev, launches)
     t_11 = time.perf_counter()
     mesh_phase(fb15k, dev, launches)
+    t_12 = time.perf_counter()
+    compat_phase(fb15k, wn18, dev, launches)
     t_end = time.perf_counter()
     log(f"[time] phases 1-2 {t_build - t0:.1f} s, 3 {t_kernels - t_build:.1f} s, "
         f"4 {t_train - t_kernels:.1f} s (graphs included), 5-6 {t_eval - t_train:.1f} s, "
@@ -2904,7 +3304,7 @@ def main(argv) -> int:
         f"9d {t_9 - t_9c:.1f}), 10 {t_10 - t_9:.1f} s (10a-b {t_10a - t_9:.1f}, "
         f"10c {t_10c - t_10a:.1f}, 10d {t_10d - t_10c:.1f}, 10e {t_10e - t_10d:.1f}, "
         f"10f {t_10f - t_10e:.1f}, 10g {t_10g - t_10f:.1f}, 10h {t_10 - t_10g:.1f}), "
-        f"11 {t_11 - t_10:.1f} s, 12 {t_end - t_11:.1f} s")
+        f"11 {t_11 - t_10:.1f} s, 12 {t_12 - t_11:.1f} s, 13 {t_end - t_12:.1f} s")
     # each kernel at the TransE or RESCAL slice's shape, its other timed
     # shapes under "shapes"
     log(json.dumps({"kernels": [{
@@ -2914,8 +3314,9 @@ def main(argv) -> int:
         "replaces": replaces,
         "launches": launches[name],
         "max_abs_err": checks[name][0],
-        **{key: checks[name][1][0][key] for key in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_share")},
+        **{key: checks[name][1][0].get(key) for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_call",
+            "bound_share")},
         "shapes": checks[name][1],
     } for name, (_, source, replaces) in KERNELS.items()]}))
     log(smi)

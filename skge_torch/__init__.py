@@ -25,6 +25,13 @@ over the processes of a `torch.distributed` group, one shard each (NCCL on
 the cards, gloo on the CPU). The gradient scatters are
 hand-written CUDA kernels (`skge_torch.ops.cuda_segment`, and
 `skge_torch.ops.cuda_outer` for RESCAL's factored shared-pool W gradient).
+`KGEModel.compute_dtype="bfloat16"` runs the scoring matmuls on bf16
+inputs. The scikit-kge class API (`skge_torch.compat`, with the NumPy
+modules `sample`, `param`, `actfun` and `util`) trains through the same
+steps:
+
+    from skge_torch.compat import HolE, PairwiseStochasticTrainer
+    from skge_torch import sample
 
     from skge_torch import HolE, RandomModeSampler, Trainer, TrainConfig
     Trainer(HolE(n_e, n_r, 150), RandomModeSampler(n_e), TrainConfig()).fit(train)
@@ -36,7 +43,7 @@ from skge_torch.evaluation import (FilteredRankingEval, ReciprocalEvalWrapper,
 from skge_torch.models import (ERMLP, MODELS, RESCAL, ComplEx, ConvE, DistMult,
                                HolE, KGEModel, PairRE, QuatE, RotatE, SimplE,
                                TransE, TransH, TransR, TuckER)
-from skge_torch.optim import (OPTIMIZERS, SCHEDULES, SGD, AdaGrad, Adam,
+from skge_torch.optim import (OPTIMIZERS, SCHEDULES, SGD, AdaGrad, Adam, Schedule,
                               WarmupCosine, WarmupLinear, make_schedule)
 from skge_torch.outofcore import OutOfCoreTrainer
 from skge_torch.parallel.partitioned import PartitionedTrainer
@@ -94,6 +101,7 @@ __all__ = [
     "SAMPLERS",
     "SCHEDULES",
     "SGD",
+    "Schedule",
     "SharedNegativeSampler",
     "SimplE",
     "StepMetrics",
@@ -108,6 +116,7 @@ __all__ = [
     "TuckER",
     "WarmupCosine",
     "WarmupLinear",
+    "__version__",
     "evaluate",
     "init_state",
     "load_checkpoint",

@@ -58,6 +58,51 @@ def mxu_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.to(acc), b.to(acc))
 
 
+def _acc_matmul(a: torch.Tensor, b: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
+    """a @ b of two low-precision tensors, accumulated and returned in
+    `acc`. On the card a bf16 x bf16 -> fp32 product is one tensor-core GEMM
+    (`torch.mm(..., out_dtype=)`; `torch.matmul` of two bf16 tensors would
+    round its result to bf16). Elsewhere the inputs are widened first: the
+    products of bf16 values are exact in fp32, so both give the exact
+    products summed in `acc`, in another order."""
+    if a.is_cuda and acc == torch.float32:
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=acc)
+        return out.reshape(a.shape[:-1] + b.shape[-1:])
+    return torch.matmul(a.to(acc), b.to(acc))
+
+
+class _LowPrecisionMatmul(torch.autograd.Function):
+    """`KGEModel.mxu` with a `compute_dtype`: both inputs rounded to it, the
+    product accumulated in `acc_dtype(a)` and returned as `a.dtype`.
+
+    The backward rounds where JAX's transpose of the same program does
+    (`jnp.dot(a.astype(cd), b.astype(cd), preferred_element_type=acc)`):
+    each input's cotangent is the unrounded output cotangent times the
+    other ROUNDED input, summed in `acc`, then rounded to `compute_dtype`
+    (the transpose of `astype`) and widened to the input's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b, cd):
+        acc = acc_dtype(a)
+        ac, bc = a.to(cd), b.to(cd)
+        ctx.save_for_backward(ac, bc)
+        ctx.dtypes = (a.dtype, b.dtype, cd, acc)
+        return _acc_matmul(ac, bc, acc).to(a.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        ac, bc = ctx.saved_tensors
+        a_dtype, b_dtype, cd, acc = ctx.dtypes
+        g = g.to(acc)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.matmul(g, bc.to(acc).T).to(cd).to(a_dtype)
+        if ctx.needs_input_grad[1]:
+            a2 = ac.reshape(-1, ac.shape[-1]).to(acc)
+            gb = (a2.T @ g.reshape(-1, g.shape[-1])).to(cd).to(b_dtype)
+        return ga, gb, None
+
+
 def nunif(generator: torch.Generator, shape: Tuple[int, ...],
           dtype=torch.float32) -> torch.Tensor:
     """Normalized-uniform (Glorot-style) init: U(-b, b), b=sqrt(6/(d0+d1))."""
@@ -78,13 +123,22 @@ INITIALIZERS = {"nunif": nunif, "normal": normal}
 
 @dataclass(frozen=True)
 class KGEModel:
-    """Base class: frozen hyperparams + pure scoring functions."""
+    """Base class: frozen hyperparams + pure scoring functions.
+
+    `compute_dtype` (default: `dtype`) sets the input precision of the
+    batched scoring matmuls (`mxu`: the pool and all-entity sweeps):
+    parameters, the gradients outside those products and the optimizer
+    stay in `dtype`, and the products accumulate in >= fp32. 'bfloat16'
+    runs them on the card's bf16 tensor cores for about 3 decimal digits
+    of score precision; the parity tests use the exact default.
+    """
 
     n_entities: int
     n_relations: int
     ncomp: int
     dtype: str = "float32"
     init: str = "nunif"
+    compute_dtype: str = ""
 
     # static metadata, overridden per model
     name = "base"
@@ -125,8 +179,12 @@ class KGEModel:
         return getattr(torch, self.dtype)
 
     def mxu(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """Scoring matmul, `mxu_dot`."""
-        return mxu_dot(a, b)
+        """Scoring matmul in `compute_dtype` with >= fp32 accumulation, cast
+        back to the parameter dtype (`_LowPrecisionMatmul`); `mxu_dot` when
+        `compute_dtype` is empty or `dtype`."""
+        if not self.compute_dtype or self.compute_dtype == self.dtype:
+            return mxu_dot(a, b)
+        return _LowPrecisionMatmul.apply(a, b, getattr(torch, self.compute_dtype))
 
     # --- interface ---
     def slot_spec(self) -> SlotSpec:

@@ -747,22 +747,15 @@ def make_partitioned_epoch(
     return epoch
 
 
-def _generator_on(gen: Optional[torch.Generator], device: torch.device,
-                  seed: int) -> torch.Generator:
-    if gen is not None and gen.device.type == device.type:
-        return gen
-    out = torch.Generator(device=device)
-    out.manual_seed(seed if gen is None else gen.initial_seed())
-    return out
-
-
 def shard_state_partitioned(state: TrainState, model: KGEModel, group: ShardGroup,
                             generator: Optional[torch.Generator] = None) -> TrainState:
     """This rank's part of a full state (tensors or arrays on any device,
     e.g. one converted from the JAX package): rows [r*S, (r+1)*S) of the
     entity table and its optimizer slots, every other leaf whole, on the
-    group's device. The generator is `generator`, else the state's when it
-    is on the group's device type, else a new one seeded as the state's."""
+    group's device. The generator is `generator`, else the state's, which
+    must then be on the group's device type: a generator's position cannot
+    move between device types, and a reseeded one would repeat its draws
+    (load a checkpoint on the group's device instead)."""
     epname = entity_param(model)
     s_rows = model.n_entities // group.size
     lo, hi = group.rank * s_rows, (group.rank + 1) * s_rows
@@ -773,11 +766,15 @@ def shard_state_partitioned(state: TrainState, model: KGEModel, group: ShardGrou
             v = v[lo:hi]
         return v.to(group.device).clone()
 
+    gen = state.generator if generator is None else generator
+    if gen is None or gen.device.type != group.device.type:
+        raise ValueError(
+            f"the state's generator is on {getattr(gen, 'device', None)}, the group "
+            f"runs on {group.device.type}: pass a generator on the group's device, or "
+            "give the state one (load_checkpoint(path, device) restores it there)")
     params = {k: put(k, v) for k, v in state.params.items()}
     opt_state = {k: {sn: put(k, v) for sn, v in slots.items()}
                  for k, slots in state.opt_state.items()}
-    gen = generator if generator is not None else _generator_on(
-        state.generator, group.device, 0)
     return TrainState(params, opt_state, gen, int(state.step))
 
 
@@ -792,8 +789,10 @@ def init_state_partitioned(model: KGEModel, opt: Optimizer, seed: int,
     gen.manual_seed(seed)
     params = model.init_params(gen)
     state = TrainState(params, opt.init(params), gen, 0)
-    return shard_state_partitioned(state, model, group,
-                                   generator=_generator_on(gen, group.device, seed))
+    if group.device.type != "cpu":
+        gen = torch.Generator(device=group.device)
+        gen.manual_seed(seed)
+    return shard_state_partitioned(state, model, group, generator=gen)
 
 
 class RelabeledPoolSampler:

@@ -101,7 +101,7 @@ def test_port_imports_no_jax():
                    "experiment", "native", "utils/debug", "models/distmult",
                    "models/complexe", "models/simple", "models/tucker", "models/quate",
                    "models/rotate", "models/transh", "models/pairre", "models/transr",
-                   "models/conve"):
+                   "models/conve", "compat", "sample", "param", "actfun", "util"):
         assert f"skge_torch/{module}.py" in scanned, module
     for f in files:
         for mod in _imports(f):

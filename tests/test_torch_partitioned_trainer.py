@@ -334,3 +334,47 @@ def test_sharded_checkpoint_across_shard_counts(world):
 
 if __name__ == "__main__":
     worker(sys.argv[1], sys.argv[2])
+
+
+def _one_rank(device):
+    """A group of one on `device`, for placement alone (no collective)."""
+    return distributed.ShardGroup(group=None, rank=0, size=1, device=torch.device(device))
+
+
+def test_shard_state_keeps_the_generator_or_raises():
+    """The state's generator is kept, at its position, on its own device
+    type; one that has advanced on the CPU is refused on another device
+    type instead of being reseeded (which would repeat its draws)."""
+    import skge_torch
+
+    model = skge_torch.TransE(CKPT_ROWS, CKPT_RELS, DIM)
+    opt = skge_torch.AdaGrad(lr=0.1)
+    gen = torch.Generator().manual_seed(SEED)
+    state = skge_torch.init_state(model, opt, gen)
+    torch.rand(5, generator=gen)  # the generator has moved
+    position = gen.get_state()
+    placed = tpart.shard_state_partitioned(state, model, _one_rank("cpu"))
+    assert placed.generator is gen
+    assert torch.equal(placed.generator.get_state(), position)
+    with pytest.raises(ValueError, match="load_checkpoint"):
+        tpart.shard_state_partitioned(state, model, _one_rank("cuda"))
+    with pytest.raises(ValueError, match="load_checkpoint"):
+        tpart.shard_state_partitioned(state._replace(generator=None), model,
+                                      _one_rank("cpu"))
+    given = torch.Generator()
+    assert tpart.shard_state_partitioned(state, model, _one_rank("cpu"),
+                                         generator=given).generator is given
+
+
+def test_init_state_partitioned_continues_its_init_generator_on_the_cpu():
+    """On the CPU the training draws continue the generator that drew the
+    initial params, as `init_state` with a CPU generator seeded `seed`."""
+    import skge_torch
+
+    model = skge_torch.TransE(CKPT_ROWS, CKPT_RELS, DIM)
+    opt = skge_torch.AdaGrad(lr=0.1)
+    want = skge_torch.init_state(model, opt, torch.Generator().manual_seed(SEED))
+    got = tpart.init_state_partitioned(model, opt, SEED, _one_rank("cpu"))
+    for k, v in want.params.items():
+        assert torch.equal(got.params[k], v)
+    assert torch.equal(got.generator.get_state(), want.generator.get_state())
