@@ -43,7 +43,10 @@ Phases, each fatal:
    iid pairwise path (13b: T = 19,328, 4 rows a positive, R = 1,345,
    D = 10,000, no count channel) and its counts (D = 1);
    its scalar path also timed at D = 151
-   and at RESCAL's W counts (D = 1), beside `index_add_`;
+   and at RESCAL's W counts (D = 1), beside `index_add_`; both kernels at
+   the quality suite's WN18 shapes (phase 14: K1 at T = 12,437, 6,293,
+   11,022 and 18,395, and iid RESCAL's W at D = 10,000, timed at the
+   first, third and last; K2 at T = 1,415, R = 18);
    `segment_outer_sum` equal bit for bit to its in-order plain version and to itself in a second call, also at ranks 1, 3 and 4,
    d = 37, 12 and 1,100, and with half of the occurrences on one row at
    ranks 1, 3 and 4; timed at WN18's 18 relations, with half and with all
@@ -238,6 +241,23 @@ Phases, each fatal:
       gap to fp32 beside the JAX package's bound (0.03, checked for HolE),
       the card's bf16 scores within 1e-4 of the CPU's bf16 path, top-10
       overlap; params and accumulators stay fp32.
+14. the quality suite (`python -m skge_torch.quality_suite`) on its default
+   latent KG, WN18's shape (40,943 entities, 18 relations, 141,442
+   triples, 100 batches of 1,415), each run with the launch counts set to
+   0 just before it and held to their exact values after:
+   14a `main()` as a user runs it: selfadv TransE-L2, k = 8,192, alpha 2,
+      validated every 4 epochs, its `--out` line under build/chip_smoke/:
+      1 K1 a step on the 16-byte path, filtered MRR at least
+      `QUALITY_SELFADV_GATE`;
+   14b RESCAL's margin row, k = 8,192, 2 epochs: 1 K2 and 2 K1 a step,
+      filtered MRR at least 5x random;
+   14c tests/test_quality_gates.py's three 2,000-entity geometry gates at
+      their sizes and thresholds (selfadv, 100 epochs of 20 batches):
+      RESCAL and TransE on the bilinear KG, RotatE on the rotational KG;
+   14d the suite's iid RESCAL (random-mode, 5 negatives a mode): one
+      epoch, 3 K1 a step, then one step from the initial params with
+      those accumulators (held at >= 1e-6) on the card against the CPU,
+      within 1e-5, the same violations.
 
 Prints one JSON line with the kernel table, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.
@@ -269,7 +289,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from skge_torch import compat
+from skge_torch import compat, quality_suite
 from skge_torch import sample as host_sample
 from skge_torch import (ERMLP, MODELS, RESCAL, AdaGrad, Adam, BernoulliSampler,
                         CorruptedSampler, DistMult, FilteredRankingEval, HolE,
@@ -483,6 +503,28 @@ OOC_MARGIN_GATE = dict(n_entities=600, n_relations=8, n_train=3000, n_valid=0,
                        n_test=80, latent_dim=8, seed=3)
 OOC_CE_GATE = dict(n_entities=300, n_relations=6, n_train=900, n_test=40,
                    latent_dim=6, seed=3)
+# phase 14: the quality suite (`python -m skge_torch.quality_suite`) on its
+# default latent KG, WN18's shape (40,943 entities, 18 relations, 141,442
+# triples, 100 batches of 1,415); QUALITY_KG shrinks it for a rehearsal
+QUALITY_KG: list = []
+QUALITY_SELFADV = ["--loss", "selfadv", "--models", "TransE-L2", "--k", "8192",
+                   "--adv-alpha", "2.0", "--epochs", "12", "--eval-every", "4"]
+# the filtered-MRR gates: ~35% below what one H100 read at these depths
+# (14a 0.2458, 14b 0.054), far above random (~0.0005)
+QUALITY_SELFADV_GATE = 0.16
+QUALITY_RESCAL = ["--k", "8192", "--models", "RESCAL", "--epochs", "2"]
+QUALITY_RESCAL_GATE = 0.035
+QUALITY_IID = ["--sampler", "random-mode", "--negatives", "5"]
+# tests/test_quality_gates.py's geometry gates (selfadv, k 1,024, alpha 2,
+# AdaGrad 0.3, 100 epochs of 20 batches, ncomp 32) at their sizes
+GEOMETRY = SimpleNamespace(ncomp=32, k=1024, alpha=2.0, lr=0.3, epochs=100, nbatches=20,
+                           seed=0)
+GEOMETRY_KG = {
+    "bilinear": dict(n_entities=2000, n_relations=12, n_train=16000, n_test=400,
+                     latent_dim=8, seed=5, kind="bilinear"),
+    "rotational": dict(n_entities=2000, n_relations=12, n_train=16000, n_test=400,
+                       latent_dim=16, seed=6, kind="rotational"),
+}
 
 
 def check(ok: bool, what: str) -> None:
@@ -544,7 +586,9 @@ def device_ms(fn, inputs, n=50, tries=3):
     """Per call, the card's own time: the summed durations of every kernel
     and memset the calls ran (torch.profiler), no host time. A profile that
     saw no kernel at all (the profiler now and then drops a profile's
-    device records) is taken again, up to `tries` times."""
+    device records) is taken again, up to `tries` times, a second apart;
+    then the n calls are timed back to back between two CUDA events, and
+    the log says so."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for attempt in range(tries):
@@ -557,7 +601,16 @@ def device_ms(fn, inputs, n=50, tries=3):
         if us > 0:
             return us / n / 1e3
         log(f"[3] the profiler saw no kernel of {n} calls (try {attempt + 1} of {tries})")
-    check(False, "the profiler saw the card's kernels")
+        time.sleep(1.0)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn(*inputs)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / n
+    log(f"[3] timed with CUDA events around {n} back-to-back calls instead: {ms:.4f} ms a call")
+    return ms
 
 
 def time_rounds(fns, inputs, what, n=50, n_plain=None) -> dict:
@@ -635,7 +688,8 @@ def check_segment_sum(name, idx, grads, nrows, vector) -> float:
 VECTOR_TIMED = ("slice", "iid", "selfadv", "ComplEx, SimplE", "QuatE", "TransR's M",
                 "out-of-core TransE", "out-of-core RESCAL's E", "partitioned TransE",
                 "partitioned full CE", "RESCAL's E", "mesh iid pointwise",
-                "compat RESCAL's W")
+                "compat RESCAL's W", "quality suite TransE k=8192, WN18",
+                "quality suite RESCAL's E, WN18", "quality suite iid RESCAL's W, WN18")
 
 
 def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
@@ -681,6 +735,11 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
     # (the two-scatter branch: no count channel, the counts at D = 1)
     t_compat_w = 4 * _batch_size(RESCAL_PAIRWISE)
     compat_w = RESCAL_PAIRWISE.ncomp ** 2
+    # the quality suite at WN18's shape (phase 14, its batch of 1,415): the
+    # shared pool of 8,192 (TransE, selfadv and margin) and of 2,048 (HolE,
+    # DistMult, ComplEx, RotatE) into E and R, RESCAL's E (s, o, the pool),
+    # iid x5 (s, o, r and 10 corruptions a positive) and iid RESCAL's W
+    b_wn, wn_rows = -(-WN18.n_train // 100), WN18.n_entities + WN18.n_relations
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = [  # name, T, R, D, low id, high id, storage offset, 16-byte path
         ("slice", t_slice, rows, width, 0, rows, 0, True),
@@ -698,6 +757,14 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
         ("mesh iid pointwise", t_mesh_pw, rows, width, 0, rows, 0, True),
         ("compat RESCAL's W", t_compat_w, r, compat_w, 0, r, 0, True),
         ("compat RESCAL's W counts", t_compat_w, r, 1, 0, r, 0, False),
+        ("quality suite TransE k=8192, WN18", 3 * b_wn + SELFADV_K, wn_rows, width, 0,
+         wn_rows, 0, True),
+        ("quality suite k=2048, WN18", 3 * b_wn + 2048, wn_rows, width, 0, wn_rows, 0, True),
+        ("quality suite RESCAL's E, WN18", 2 * b_wn + SELFADV_K, WN18.n_entities, rescal_w,
+         0, WN18.n_entities, 0, True),
+        ("quality suite iid HolE, WN18", 13 * b_wn, wn_rows, width, 0, wn_rows, 0, True),
+        ("quality suite iid RESCAL's W, WN18", b_wn, WN18.n_relations, compat_w, 0,
+         WN18.n_relations, 0, True),
         ("ids<0 and >=R dropped", t_slice, rows, width, -50, rows + 50, 0, True),
         ("D=151 scalar path", t_slice, rows, width - 1, 0, rows, 0, False),
         ("misaligned view", t_slice, rows, width, 0, rows, 1, False),
@@ -729,7 +796,8 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
         shapes.append(timed_shape(
             f"T={t}, R={nrows}, D={d}" + (", scalar path" if scalar else "")
             + (f", {name}" if name.startswith(("out-of-core", "partitioned", "RESCAL",
-                                                "mesh", "compat")) else ""), times,
+                                                "mesh", "compat", "quality"))
+               else ""), times,
             nbytes=8 * t + 4 * t * d + 4 * nrows * d, flops=t * d))
     return worst, shapes
 
@@ -773,8 +841,10 @@ def segment_outer_sum_checks(dev, verify=True) -> tuple[float, list]:
     relations (~268 occurrences on every row), half and all of the
     occurrences on row 0 (the longest serial chain there can be), and
     Zipf-distributed ids (P(r) ~ 1 / (r + 1): the long rows have
-    neighbouring ids), and 10d's out-of-core bucket step (T = its batch);
-    the plain version is timed at the first and the last only. Each timed
+    neighbouring ids), 10d's out-of-core bucket step (T = its batch) and
+    phase 14's RESCAL at WN18's shape (T = 1,415, R = 18); the plain
+    version is timed at the first and the last two only, the composite
+    library yardstick at the first and the last. Each timed
     shape also times the grouping (`group_by_row`) alone."""
     t_slice, r, d = _batch_size(RESCAL_PAIRWISE), DATA.n_relations, RESCAL_PAIRWISE.ncomp
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -785,6 +855,8 @@ def segment_outer_sum_checks(dev, verify=True) -> tuple[float, list]:
         ("all on row 0", t_slice, 18, d, 2, 0, 1),
         ("Zipf", t_slice, r, d, 2, 0, r),
         ("out-of-core", OOC_SHAPE.batch, r, RESCAL_PAIRWISE.ncomp, 2, 0, r),
+        ("quality suite, WN18", -(-WN18.n_train // 100), WN18.n_relations,
+         RESCAL_PAIRWISE.ncomp, 2, 0, WN18.n_relations),
         ("ids<0 and >=R dropped", t_slice, r, d, 2, -50, r + 50),
         ("rank 1", t_slice, r, d, 1, 0, r),
         ("ragged T, d=37", 1001, 40, 37, 2, 0, 40),
@@ -810,7 +882,7 @@ def segment_outer_sum_checks(dev, verify=True) -> tuple[float, list]:
         if verify:
             worst = max(worst, check_segment_outer_sum(name, idx, us, vs, nrows))
         if name in ("slice", "WN18 R=18", "half on row 0", "all on row 0", "Zipf",
-                    "out-of-core"):
+                    "out-of-core", "quality suite, WN18"):
             timed[name] = (idx, us, vs, nrows)
     shapes = []
     for name, (idx, us, vs, nrows) in timed.items():
@@ -818,9 +890,9 @@ def segment_outer_sum_checks(dev, verify=True) -> tuple[float, list]:
         fns = {"kernel": cuda_outer.segment_outer_sum}
         if hasattr(cuda_outer, "group_by_row"):  # an older tree's K2 takes no grouping
             fns["grouping"] = lambda i, _u, _v, n: cuda_outer.group_by_row(i, n)
-        if name in ("slice", "out-of-core"):
+        if name in ("slice", "out-of-core", "quality suite, WN18"):
             fns["plain"] = cuda_outer.segment_outer_sum_reference
-        if name == "slice":  # no one PyTorch call: the nearest composite
+        if name in ("slice", "quality suite, WN18"):  # no one call: the nearest composite
             fns["library"] = _outer_library
         times = time_rounds(fns, timed[name], f"segment_outer_sum at T={t}, R={nrows}, "
                             f"d={dd}, rank 2 ({name})", n_plain=3)
@@ -3213,6 +3285,144 @@ def compat_phase(fb15k, wn18, dev, launches) -> None:
     bf16_serving(wn18, dev)
 
 
+def _suite_argv(argv, dev) -> list:
+    return QUALITY_KG + argv + (["--cpu"] if dev.type == "cpu" else [])
+
+
+def quality_row(tag, what, argv, per_step, gate, dev, launches) -> dict:
+    """14a-b: one row of `skge_torch.quality_suite.main` as a user runs it,
+    its `--out` line under build/chip_smoke/, the counts set to 0 just
+    before it and held to `per_step` times its steps (on the card) after;
+    its filtered MRR at least `gate`."""
+    argv = _suite_argv(argv + ["--out", f"{OUT}/quality.md"], dev)
+    nbatches = quality_suite.parse_args(argv).nbatches
+    os.makedirs(OUT, exist_ok=True)
+    reset_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    (row,) = quality_suite.main(argv)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    steps = row["epochs_run"] * nbatches
+    want = {name: n * steps for name, n in per_step.items()}
+    log(f"[{tag}] {what}: {json.dumps(row)}; {dt:.2f} s with the KG and the rankings; "
+        f"launches {counts} for {steps} steps")
+    for key in ("mrr", "mrr_raw", "hits1", "hits3", "hits10", "mr", "train_s"):
+        check(np.isfinite(row[key]), f"{tag}: finite {key}")
+    check(1 <= row["epochs"] <= row["epochs_run"], f"{tag}: the best epoch was run")
+    check(dev.type != "cuda" or counts == want, f"{tag} {what}: launches {counts}, want {want}")
+    check(row["mrr"] >= gate, f"{tag} {what}: filtered MRR {row['mrr']} at least {gate}")
+    for name in launches:
+        launches[name] += counts[name]
+    return row
+
+
+def geometry_gates(dev, launches) -> None:
+    """14c: tests/test_quality_gates.py's 2,000-entity geometry gates at
+    their sizes and thresholds, KGs built on the card: RESCAL wins the
+    bilinear KG (MRR > 0.08, H@10 > 0.15) and beats TransE there by 1.2x
+    (TransE > 0.03); RotatE wins the rotational KG (MRR > 0.20, H@10 >
+    0.45). Each run's launches held to their exact counts: selfadv RESCAL
+    scatters W's d^2-wide rows through K1 (no K2), RotatE its E and its
+    phases in two K1 calls."""
+    runs = (("RESCAL bilinear", "bilinear", "rescal", 0.5, {"rparam": 0.0},
+             _launches(2, 0, 2)),
+            ("TransE bilinear", "bilinear", "transe", 6.0, {}, _launches(1, 0, 1)),
+            ("RotatE rotational", "rotational", "rotate", 3.0, {}, _launches(2, 0, 2)))
+    res = {}
+    for tag, kg, name, gamma, kw, per_step in runs:
+        ds = latent_kg(**GEOMETRY_KG[kg], device=dev)
+        model = MODELS[name](ds.n_entities, ds.n_relations, GEOMETRY.ncomp, **kw)
+        opt = AdaGrad(lr=GEOMETRY.lr)
+        step = make_selfadv_step(model, opt, SharedNegativeSampler(ds.n_entities, k=GEOMETRY.k),
+                                 margin=gamma, alpha=GEOMETRY.alpha, aggregate="dense")
+        epoch = make_epoch_fn(step, len(ds.train), GEOMETRY.nbatches)
+        state = init_state(model, opt, torch.Generator(device=dev).manual_seed(GEOMETRY.seed))
+        xs = torch.as_tensor(ds.train, dtype=torch.int64, device=dev)
+        reset_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(GEOMETRY.epochs):
+            state, _ = epoch(state, xs)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        steps = GEOMETRY.epochs * GEOMETRY.nbatches
+        want = {k: n * steps for k, n in per_step.items()}
+        check(dev.type != "cuda" or counts == want, f"14c {tag}: launches {counts}, want {want}")
+        for k in launches:
+            launches[k] += counts[k]
+        assert_finite_state(state)
+        res[tag] = r = FilteredRankingEval(model, ds.test, ds.all_triples(), batch_size=512)(
+            state.params)
+        log(f"[14c] {tag}: filtered MRR {r.mrr:.4f}, H@10 {r.hits[10]:.4f} after "
+            f"{GEOMETRY.epochs} epochs of {GEOMETRY.nbatches} selfadv steps ({dt:.2f} s, "
+            f"{1e3 * dt / steps:.3f} ms a step), launches {counts}")
+    rescal, trans, rot = (res[t] for t, *_ in runs)
+    check(rescal.mrr > 0.08 and rescal.hits[10] > 0.15, "14c: RESCAL wins the bilinear KG")
+    check(trans.mrr > 0.03, "14c: TransE learns the bilinear KG")
+    check(rescal.mrr > 1.2 * trans.mrr, "14c: RESCAL beats TransE by 1.2x on the bilinear KG")
+    check(rot.mrr > 0.20 and rot.hits[10] > 0.45, "14c: RotatE wins the rotational KG")
+
+
+def quality_iid_step(dev, launches) -> None:
+    """14d: the suite's iid RESCAL (`--sampler random-mode --negatives 5`,
+    margin 0.2, AdaGrad 0.1) at WN18's shape: one epoch on the card (3 K1
+    a step: E's rows and W's 10,000-wide rows on the 16-byte path, W's
+    counts; no K2), then one step from the initial params with those
+    accumulators, held at >= 1e-6 as ConvE's (a row the epoch left cold
+    magnifies the rounding of a gradient below eps = 1e-6 up to lr/eps
+    times), on the card against the CPU, within 1e-5 and with the same
+    violations."""
+    args = quality_suite.parse_args(_suite_argv(QUALITY_IID, dev))
+    ds = quality_suite.load_kg(args, dev)
+    suite = quality_suite.Suite(args, ds, dev)
+    name, model, margin, lr, k = next(
+        c for c in quality_suite.configs(args, ds.n_entities, ds.n_relations)
+        if c[0] == "RESCAL")
+    model, step, xs, opt, _ = suite.build(name, model, margin, lr, k, args.adv_alpha, 0.0)
+    state0 = init_state(model, opt, torch.Generator(device=dev).manual_seed(args.train_seed))
+    epoch = make_epoch_fn(step, len(xs), args.nbatches)
+    reset_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    state, m = epoch(state0, xs)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    want = _launches(3 * args.nbatches, 0, 2 * args.nbatches)
+    log(f"[14d] the suite's iid RESCAL x{args.negatives}: one epoch of {args.nbatches} "
+        f"steps in {dt:.3f} s, violations {int(m.nviolations[0])} at the first step, "
+        f"{int(m.nviolations[-1])} at the last; launches {counts}")
+    check(dev.type != "cuda" or counts == want, f"14d: launches {counts}, want {want}")
+    for key in launches:
+        launches[key] += counts[key]
+    assert_finite_state(state)
+    cfg = SimpleNamespace(model="rescal", label="quality-suite iid RESCAL", loss="pairwise",
+                          sampler="random-mode", negatives=args.negatives, margin=margin,
+                          nbatches=args.nbatches, seed=args.train_seed)
+    step_against_cpu(cfg, ds, model, opt, state0._replace(opt_state=state.opt_state), dev,
+                     "14d", p2_floor=CONVE_P2_FLOOR)
+
+
+def quality(dev, launches) -> dict:
+    """Phase 14: the quality suite on the card; returns its sub-phases'
+    seconds."""
+    t = [time.perf_counter()]
+    quality_row("14a", "selfadv TransE-L2, k 8,192, alpha 2", QUALITY_SELFADV,
+                _launches(1, 0, 1), QUALITY_SELFADV_GATE, dev, launches)
+    t.append(time.perf_counter())
+    quality_row("14b", "margin RESCAL, k 8,192", QUALITY_RESCAL, _launches(2, 1, 1),
+                QUALITY_RESCAL_GATE, dev, launches)
+    t.append(time.perf_counter())
+    geometry_gates(dev, launches)
+    t.append(time.perf_counter())
+    quality_iid_step(dev, launches)
+    t.append(time.perf_counter())
+    return {sub: b - a for sub, a, b in zip("abcd", t, t[1:])}
+
+
 def main(argv) -> int:
     if argv not in ([], ["--kernel-times"]):
         print("usage: python3 chip_smoke.py [--kernel-times]", file=sys.stderr)
@@ -3294,6 +3504,8 @@ def main(argv) -> int:
     mesh_phase(fb15k, dev, launches)
     t_12 = time.perf_counter()
     compat_phase(fb15k, wn18, dev, launches)
+    t_13 = time.perf_counter()
+    t_14 = quality(dev, launches)
     t_end = time.perf_counter()
     log(f"[time] phases 1-2 {t_build - t0:.1f} s, 3 {t_kernels - t_build:.1f} s, "
         f"4 {t_train - t_kernels:.1f} s (graphs included), 5-6 {t_eval - t_train:.1f} s, "
@@ -3304,7 +3516,9 @@ def main(argv) -> int:
         f"9d {t_9 - t_9c:.1f}), 10 {t_10 - t_9:.1f} s (10a-b {t_10a - t_9:.1f}, "
         f"10c {t_10c - t_10a:.1f}, 10d {t_10d - t_10c:.1f}, 10e {t_10e - t_10d:.1f}, "
         f"10f {t_10f - t_10e:.1f}, 10g {t_10g - t_10f:.1f}, 10h {t_10 - t_10g:.1f}), "
-        f"11 {t_11 - t_10:.1f} s, 12 {t_12 - t_11:.1f} s, 13 {t_end - t_12:.1f} s")
+        f"11 {t_11 - t_10:.1f} s, 12 {t_12 - t_11:.1f} s, 13 {t_13 - t_12:.1f} s, "
+        f"14 {t_end - t_13:.1f} s (" + ", ".join(f"14{sub} {s:.1f}" for sub, s in t_14.items())
+        + ")")
     # each kernel at the TransE or RESCAL slice's shape, its other timed
     # shapes under "shapes"
     log(json.dumps({"kernels": [{

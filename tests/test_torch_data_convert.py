@@ -101,9 +101,12 @@ def test_port_imports_no_jax():
                    "experiment", "native", "utils/debug", "models/distmult",
                    "models/complexe", "models/simple", "models/tucker", "models/quate",
                    "models/rotate", "models/transh", "models/pairre", "models/transr",
-                   "models/conve", "compat", "sample", "param", "actfun", "util"):
+                   "models/conve", "compat", "sample", "param", "actfun", "util",
+                   "quality_suite"):
         assert f"skge_torch/{module}.py" in scanned, module
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "skge_tpu", "skge"), (f, mod)
+            # nor the JAX system's scripts/ (imported as top-level modules)
+            assert top not in ("jax", "jaxlib", "skge_tpu", "skge", "scripts",
+                               "quality_suite"), (f, mod)
