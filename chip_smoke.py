@@ -47,6 +47,11 @@ Phases, each fatal:
    the quality suite's WN18 shapes (phase 14: K1 at T = 12,437, 6,293,
    11,022 and 18,395, and iid RESCAL's W at D = 10,000, timed at the
    first, third and last; K2 at T = 1,415, R = 18);
+   K1's deterministic variant (sorted ids, each row summed in order, no
+   atomics) at 7f's and 15b's shapes and the edge shapes: the same bits
+   in two calls, within 1e-5 of the plain version, timed at 7f's E and
+   15a's shape beside the plain version and `index_add_`, both under
+   deterministic algorithms too;
    `segment_outer_sum` equal bit for bit to its in-order plain version and to itself in a second call, also at ranks 1, 3 and 4,
    d = 37, 12 and 1,100, and with half of the occurrences on one row at
    ranks 1, 3 and 4; timed at WN18's 18 relations, with half and with all
@@ -89,7 +94,10 @@ Phases, each fatal:
       and 2 K1 per step;
    7f resume: 7e for 2 epochs with a checkpoint each, the epoch-1 file
       loaded (the same generator state) and fitted from epoch 1, within
-      1e-5 of the uninterrupted run (K1 sums with atomics);
+      1e-5 of the uninterrupted run; both runs under
+      `torch.use_deterministic_algorithms(True)`, so every K1 call takes
+      its deterministic variant and no atomics' order can flip a margin
+      test;
    7g learning: TransE ncomp 32 on `synthetic_kg(200, 8, 2000)`, margin
       0.2, 20 batches, 15 epochs: violations fall to <= 40% of epoch 1's,
       rows stay in the unit ball;
@@ -157,13 +165,16 @@ Phases, each fatal:
       k=8,192) through `Experiment` with `--trainer outofcore --parts 4`,
       one epoch and one streamed validation, held to the in-core ranking;
       the `.sharded` checkpoint restored and fitted one more epoch within
-      1e-5 of the uninterrupted run;
-   10g serving on 10a's params at `scripts/serving_bench.py`'s defaults
-      (59,071 queries, batch 1,024, k=10, filtered by the train triples):
+      1e-5 of the uninterrupted run, both under deterministic algorithms
+      as in 7f;
+   10g serving on 10a's params on `python -m skge_torch.serving_bench`'s
+      query stream and timing at its defaults (59,071 queries, batch
+      1,024, k=10, filtered by the train triples):
       `LinkPredictor` exact (queries/s, busy time a batch, its first 1,024
       queries held to the CPU engine), int8, fp8 and bfloat16 (queries/s,
       top-10 overlap), `StreamedLinkPredictor` in 4 chunks of 4,096 from
-      pinned memory (held to the in-core engine, bytes a batch);
+      pinned memory (held to the in-core engine, bytes a batch); then the
+      serving bench's `main()` at its defaults, its JSON line;
    10h the JAX package's out-of-core learning gates on the card.
 11. the partitioned trainer at P=1, in this process over an NCCL group of
    one made from a file store under build/chip_smoke/ (destroyed at the
@@ -259,6 +270,32 @@ Phases, each fatal:
       those accumulators (held at >= 1e-6) on the card against the CPU,
       within 1e-5, the same violations.
 
+15. the out-of-core flagship (`python -m skge_torch.flagship`) and the
+   entry points beside it, each run with the launch counts set to 0 just
+   before it and held to their exact values after:
+   15a `flagship.run` at JAX's 1M shape (the 10^6-entity lattice KG, 8 M
+      reciprocal triples, P=4, d=64, k=8,192, sampled CE with Adam, one
+      epoch of 16 x 400 steps, 200 queries ranked): every phase line in
+      order, finite losses, the restored checkpoint equal bit for bit to
+      the saved tables, 1 K1 a step on the 16-byte path (each epoch's count
+      equal to its steps), the trainer at the shape phase 3 checked;
+   15b one off-diagonal bucket epoch at 15a's shape with the bucket stack
+      in pinned host memory (`host_buckets=True`) and on the card, from
+      the same state, permutation and pools: the uploaded bucket and the
+      ids and mask the epoch receives bit-equal to the device stack's, and
+      under `torch.use_deterministic_algorithms(True)` (K1's deterministic
+      variant) the same loss and tables, params and Adam slots bit for
+      bit;
+   15c 15a's streamed ranks against `FilteredRankingEval` on the same
+      params, by the 1e-5 gap rule;
+   15d `python -m skge_torch.profile_step --epochs 1` (the main path's phase
+      ablation at FB15k's shape): 1 K1 a step of its full phase;
+   15e `python -m skge_torch.ooc_ce_ab --epochs 2 --eval-every 1 --arms
+      ce:1,sampled_ce:2` at WN18's shape: 1 K1 a sampled-CE step, none for
+      full CE, a row per arm.
+   Phase 3 checks and times K1 at the full 10^7 flagship's step
+   (`FLAGSHIP_SHAPE`: R = 2S + 128 = 2,938,776, D = 68) and at 15a's.
+
 Prints one JSON line with the kernel table, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.
 
@@ -274,6 +311,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import shutil
@@ -289,7 +327,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from skge_torch import compat, quality_suite
+from skge_torch import compat, flagship, ooc_ce_ab, profile_step, quality_suite, serving_bench
 from skge_torch import sample as host_sample
 from skge_torch import (ERMLP, MODELS, RESCAL, AdaGrad, Adam, BernoulliSampler,
                         CorruptedSampler, DistMult, FilteredRankingEval, HolE,
@@ -300,7 +338,7 @@ from skge_torch import (ERMLP, MODELS, RESCAL, AdaGrad, Adam, BernoulliSampler,
                         TransE, init_state, load_checkpoint, make_ce_step,
                         make_epoch_fn, make_pairwise_step, make_pointwise_step,
                         make_sampled_ce_step, make_selfadv_step, triple_classification)
-from skge_torch.data import (add_reciprocal_relations, bernoulli_probs,
+from skge_torch.data import (add_reciprocal_relations, bernoulli_probs, rows_with_keys,
                              latent_assign, latent_kg, latent_queries,
                              latent_scores, latent_tables, sorted_train_keys,
                              synthetic_kg, type_index_arrays, unigram_logits)
@@ -374,6 +412,11 @@ RTOL = ATOL = 1e-5  # segment_sum: fp32 sums in atomic order, as in tests/test_p
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 VECTOR = "segment_sum 16-byte path"  # the launch count of K1's float4 path
+# phase 3: K1's deterministic variant checked at these cases (7f's E and W
+# counts, 15a's and 15b's step, the edge shapes) and timed at the first two
+DETERMINISTIC = ("RESCAL's E", "flagship 1M", "RESCAL's W counts, D=1",
+                 "ids<0 and >=R dropped", "D=151 scalar path", "misaligned view",
+                 "ragged last block", "wide D=22500", "T=0")
 # one step, card against CPU, params and p2. The step starts from warm
 # AdaGrad accumulators: from p2 = 0 an update is lr*g/max(|g|, 1e-6), which
 # turns an fp32 difference d in a gradient below 1e-6 into a param
@@ -459,8 +502,6 @@ OOC_RECIPE = ["--model", "hole", "--trainer", "outofcore", "--parts", "4",
               "--reciprocal", "--sampled-ce", "--optimizer", "adam", "--lr", "1e-3",
               "--k", "8192", "--me", "1", "--test-all", "1", "--nb", "20"]
 RANK_GAP = 1e-5  # ranks may differ only where a candidate lies this close
-# `scripts/serving_bench.py`'s defaults: random (s, p) queries from
-# default_rng(0), batch 1,024, k=10; the streamed engine 4 chunks of 4,096
 # phase 11: the partitioned trainer at P=1 over a process group of one
 # (NCCL on the card), FB15k's shape: TransE-L1 at bench.py's width, k = 1,024,
 # AdaGrad 0.1, a batch of 4,832 triples as in phase 4
@@ -484,8 +525,12 @@ MESH_TRIPLES = 96_628      # 12a: a fifth of the triples, 20 steps of 4,832
 MESH_PAD_TRIPLES = 48_310  # 12c: 10 steps of 4,831, padded to 4,832 by pad_to=4
 MESH_STORE = f"{OUT}/mesh_group_store"
 MESH_QUERIES = 1024        # 12d
-SERVE = SimpleNamespace(nqueries=59_071, batch=1024, k=10, chunk=4096,
-                        cpu_queries=1024, profile_batches=5)
+# 10g: `skge_torch.serving_bench`'s defaults (its stream of random (s, p)
+# queries after nknown random triples from default_rng(0), batch 1,024,
+# k=10) and `bench`, the arguments its main() runs with; the streamed engine
+# 4 chunks of 4,096
+SERVE = SimpleNamespace(nqueries=59_071, nknown=483_142, batch=1024, k=10, chunk=4096,
+                        cpu_queries=1024, profile_batches=5, bench=[])
 # phase 13: the reference class API (`skge_torch.compat`) at full width and
 # cut depth: each trainer's batch is that of 100 batches over the whole graph
 # (WN18: 1,415 triples, FB15k: 4,832), over the first `steps` batches' worth of
@@ -515,6 +560,23 @@ QUALITY_SELFADV_GATE = 0.16
 QUALITY_RESCAL = ["--k", "8192", "--models", "RESCAL", "--epochs", "2"]
 QUALITY_RESCAL_GATE = 0.035
 QUALITY_IID = ["--sampler", "random-mode", "--negatives", "5"]
+# phase 15: the out-of-core flagship (`python -m skge_torch.flagship`; its
+# sampled-CE step scatters s, o and r of the batch and the pool, E's 2S rows
+# and the reciprocal relations stacked, 64 + the count channel padded to 68
+# columns). FLAGSHIP_SHAPE: the full 10^7 run's (P=8, S and the batch of the
+# longest bucket over 400 steps, as it printed them on the card); phase 3
+# checks and times K1 there. 15a runs JAX's 1M shape, at which phase 3 checks
+# K1 too and 15a holds its trainer
+FLAGSHIP_SHAPE = SimpleNamespace(part_size=1_469_324, relations=128, batch=12_804,
+                                 k=8192, dim=64)
+FLAGSHIP_1M = ["--entities", "1000000", "--ntrain", "4000000", "--parts", "4",
+               "--epochs", "1", "--eval-n", "200"]
+FLAGSHIP_1M_SHAPE = SimpleNamespace(part_size=252_500, relations=128, batch=2_759,
+                                    k=8192, dim=64)
+# 15d, 15e: the profiler at its defaults (the main path) for one epoch; the
+# A/B's first and a sampled-CE arm for two epochs at WN18's shape
+PROFILE_STEP = ["--epochs", "1"]
+OOC_CE_AB = ["--epochs", "2", "--eval-every", "1", "--arms", "ce:1,sampled_ce:2"]
 # tests/test_quality_gates.py's geometry gates (selfadv, k 1,024, alpha 2,
 # AdaGrad 0.3, 100 epochs of 20 batches, ncomp 32) at their sizes
 GEOMETRY = SimpleNamespace(ncomp=32, k=1024, alpha=2.0, lr=0.3, epochs=100, nbatches=20,
@@ -534,6 +596,18 @@ def check(ok: bool, what: str) -> None:
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """`torch.use_deterministic_algorithms(True)` for the block: K1 takes its
+    sorted variant and sums in a fixed order (warn_only: cuBLAS without a
+    fixed workspace warns instead of raising)."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
 
 
 def environment() -> str:
@@ -660,6 +734,14 @@ def timed_shape(what, times, nbytes, flops, library="index_add_") -> dict:
     return shape
 
 
+def flagship_k1(shape) -> tuple:
+    """(T, R, D, low id, high id, offset) of the flagship step's one K1
+    call in an off-diagonal bucket of `shape`."""
+    rows = 2 * shape.part_size + shape.relations
+    d = shape.dim + 1 + (-(shape.dim + 1) % 4)
+    return 3 * shape.batch + shape.k, rows, d, 0, rows, 0
+
+
 def _batch_size(cfg, n=None) -> int:
     return -(-(DATA.n_train if n is None else n) // cfg.nbatches)
 
@@ -684,12 +766,42 @@ def check_segment_sum(name, idx, grads, nrows, vector) -> float:
     return err
 
 
+def check_deterministic(name, idx, grads, nrows, vector) -> float:
+    """One case of K1's deterministic variant: two calls equal bit for bit,
+    within RTOL/ATOL of `segment_sum_reference` on the same card inputs, on
+    the path it must take; returns the max abs error."""
+    t, d = grads.shape
+    before = cuda_segment.vector_launches, cuda_segment.deterministic_launches
+    with deterministic():
+        got = [cuda_segment.segment_sum(idx, grads, nrows) for _ in range(2)]
+    want = cuda_segment.segment_sum_reference(idx, grads, nrows)
+    torch.cuda.synchronize()
+    n = 2 * int(t > 0)
+    check((cuda_segment.vector_launches - before[0],
+           cuda_segment.deterministic_launches - before[1]) == (n * vector, n),
+          f"segment_sum took its deterministic variant, "
+          f"{'16-byte' if vector else 'scalar'} path ({name})")
+    same = bool(torch.equal(got[0], got[1]))
+    sequential = bool(torch.equal(got[0].cpu(), cuda_segment.segment_sum_reference(
+        idx.cpu(), grads.cpu(), nrows)))
+    err = float((got[0] - want).abs().max()) if got[0].numel() else 0.0
+    ok = bool(torch.allclose(got[0], want, rtol=RTOL, atol=ATOL))
+    log(f"[3] segment_sum deterministic {name:24s} T={t:6d} R={nrows:6d} D={d:6d} "
+        f"{'16-byte' if vector else 'scalar '}  max|err|={err:.3e}  two calls "
+        f"{'bit-equal' if same else 'DIFFER'}; the CPU's in-order sum "
+        f"{'bit-equal' if sequential else 'not bit-equal'}  {'ok' if ok else 'MISMATCH'}")
+    check(same, f"segment_sum's deterministic variant repeats bit for bit ({name})")
+    check(ok, f"segment_sum's deterministic variant against its plain version ({name})")
+    return err
+
+
 # the 16-byte path's timed shapes, each beside the plain version
 VECTOR_TIMED = ("slice", "iid", "selfadv", "ComplEx, SimplE", "QuatE", "TransR's M",
                 "out-of-core TransE", "out-of-core RESCAL's E", "partitioned TransE",
                 "partitioned full CE", "RESCAL's E", "mesh iid pointwise",
                 "compat RESCAL's W", "quality suite TransE k=8192, WN18",
-                "quality suite RESCAL's E, WN18", "quality suite iid RESCAL's W, WN18")
+                "quality suite RESCAL's E, WN18", "quality suite iid RESCAL's W, WN18",
+                "flagship 10^7", "flagship 1M")
 
 
 def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
@@ -701,8 +813,8 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
     ComplEx's and SimplE's 2 x 150-wide rows (D = 304) and QuatE's 4 x 150
     (D = 604), full-rank TransR's M gradient (T = one batch, R = relations,
     D = 150 x 150 = 22,500, no count channel), then the scalar path at
-    D = 151 and at RESCAL's W counts (D = 1), each beside `index_add_` alone
-    on the same (in-range) ids. The out-of-core bucket steps of 10a (TransE:
+    D = 151 and at RESCAL's W counts (D = 1), each beside the plain version
+    and `index_add_` alone on the same (in-range) ids. The out-of-core bucket steps of 10a (TransE:
     E's 2S rows and R in one scatter) and 10d (RESCAL's E, D = 101 padded
     to 104) are checked and timed at their own shapes too."""
     e, r = DATA.n_entities, DATA.n_relations
@@ -765,6 +877,8 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
         ("quality suite iid HolE, WN18", 13 * b_wn, wn_rows, width, 0, wn_rows, 0, True),
         ("quality suite iid RESCAL's W, WN18", b_wn, WN18.n_relations, compat_w, 0,
          WN18.n_relations, 0, True),
+        ("flagship 10^7", *flagship_k1(FLAGSHIP_SHAPE), True),
+        ("flagship 1M", *flagship_k1(FLAGSHIP_1M_SHAPE), True),
         ("ids<0 and >=R dropped", t_slice, rows, width, -50, rows + 50, 0, True),
         ("D=151 scalar path", t_slice, rows, width - 1, 0, rows, 0, False),
         ("misaligned view", t_slice, rows, width, 0, rows, 1, False),
@@ -781,23 +895,32 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
         grads = torch.randn(t * d + shift, generator=gen, device=dev)[shift:].view(t, d)
         if verify:
             worst = max(worst, check_segment_sum(name, idx, grads, nrows, vector))
+            if name in DETERMINISTIC:
+                worst = max(worst, check_deterministic(name, idx, grads, nrows, vector))
+        if name in DETERMINISTIC[:2]:
+            timed[name, "deterministic"] = (idx, grads, nrows)
         if name in (*VECTOR_TIMED, "D=151 scalar path", "RESCAL's W counts, D=1"):
             timed[name] = (idx, grads, nrows)
     shapes = []
-    for name, (idx, grads, nrows) in timed.items():
+    for key, (idx, grads, nrows) in timed.items():
+        # (name, "deterministic"): the variant, and the plain version and
+        # `index_add_` under deterministic algorithms too
+        name, variant = key if isinstance(key, tuple) else (key, "")
         t, d = grads.shape
         table = torch.zeros(nrows, d, device=dev)
         fns = {"kernel": cuda_segment.segment_sum}
         scalar = name not in VECTOR_TIMED
-        if not scalar:  # the plain version at the 16-byte path's shapes
-            fns["plain"] = cuda_segment.segment_sum_reference
+        fns["plain"] = cuda_segment.segment_sum_reference
         fns["library"] = lambda i, g, _: table.index_add_(0, i, g)
-        times = time_rounds(fns, timed[name], f"segment_sum at T={t}, R={nrows}, D={d} ({name})")
+        what = f"{name}, {variant}" if variant else name
+        with deterministic() if variant else contextlib.nullcontext():
+            times = time_rounds(fns, (idx, grads, nrows),
+                                f"segment_sum at T={t}, R={nrows}, D={d} ({what})")
         shapes.append(timed_shape(
             f"T={t}, R={nrows}, D={d}" + (", scalar path" if scalar else "")
             + (f", {name}" if name.startswith(("out-of-core", "partitioned", "RESCAL",
-                                                "mesh", "compat", "quality"))
-               else ""), times,
+                                                "mesh", "compat", "quality", "flagship"))
+               else "") + (f", {variant}" if variant else ""), times,
             nbytes=8 * t + 4 * t * d + 4 * nrows * d, flops=t * d))
     return worst, shapes
 
@@ -844,7 +967,7 @@ def segment_outer_sum_checks(dev, verify=True) -> tuple[float, list]:
     neighbouring ids), 10d's out-of-core bucket step (T = its batch) and
     phase 14's RESCAL at WN18's shape (T = 1,415, R = 18); the plain
     version is timed at the first and the last two only, the composite
-    library yardstick at the first and the last. Each timed
+    library yardstick at every timed shape. Each timed
     shape also times the grouping (`group_by_row`) alone."""
     t_slice, r, d = _batch_size(RESCAL_PAIRWISE), DATA.n_relations, RESCAL_PAIRWISE.ncomp
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -892,8 +1015,7 @@ def segment_outer_sum_checks(dev, verify=True) -> tuple[float, list]:
             fns["grouping"] = lambda i, _u, _v, n: cuda_outer.group_by_row(i, n)
         if name in ("slice", "out-of-core", "quality suite, WN18"):
             fns["plain"] = cuda_outer.segment_outer_sum_reference
-        if name in ("slice", "quality suite, WN18"):  # no one call: the nearest composite
-            fns["library"] = _outer_library
+        fns["library"] = _outer_library  # no one call: the nearest composite
         times = time_rounds(fns, timed[name], f"segment_outer_sum at T={t}, R={nrows}, "
                             f"d={dd}, rank 2 ({name})", n_plain=3)
         shapes.append(timed_shape(
@@ -1387,7 +1509,9 @@ def surface(dev, launches) -> dict:
     warm_step(tr, xs_e, "7e", 2 * 2 * RESCAL_PAIRWISE.k * len(xs_e))
 
     # 7f: resume. 2 epochs with a checkpoint each; the epoch-1 file loaded and
-    # fitted from epoch 1 lands within STEP_TOL (K1's atomics)
+    # fitted from epoch 1 lands within STEP_TOL. Both runs under deterministic
+    # algorithms: with K1's atomics a last-bit gap can flip a pair at the
+    # margin and part the runs by ~1e-3
     ck, ck1 = f"{OUT}/7f.npz", f"{OUT}/7f_epoch1.npz"
     gen_at_1 = {}
 
@@ -1400,17 +1524,23 @@ def surface(dev, launches) -> dict:
     whole = rescal_trainer(2, checkpoint_path=ck, checkpoint_every=1)
     whole.post_epoch.append(keep_epoch_1)
     reset_counts()
-    final = whole.fit(xs_e)
+    sorted_before = cuda_segment.deterministic_launches
+    with deterministic():
+        final = whole.fit(xs_e)
     state, meta = load_checkpoint(ck1, dev)
     check(meta["epoch"] == 1 and state.step == 10, "7f: the epoch-1 checkpoint")
     check(torch.equal(state.generator.get_state(), gen_at_1["state"]),
           "7f: the generator state after load equals epoch 1's")
-    resumed = rescal_trainer(2).fit(xs_e, state=state, start_epoch=1)
+    with deterministic():
+        resumed = rescal_trainer(2).fit(xs_e, state=state, start_epoch=1)
     check(resumed.step == final.step == 20, "7f: 20 steps in all")
     worst = max(float((resumed.params[k] - final.params[k]).abs().max())
                 for k in final.params)
     log(f"[7f] resumed from the epoch-1 checkpoint against 2 epochs in one run: "
         f"max|d param| {worst:.3e}")
+    sorted_launches = cuda_segment.deterministic_launches - sorted_before
+    if dev.type == "cuda":
+        check(sorted_launches == 60, f"7f: {sorted_launches} of 60 K1 launches sorted")
     check(worst <= STEP_TOL, f"7f: resumed params within {STEP_TOL}")
     counts = read_counts()
     log(f"[7f] kernel launches {counts} for 30 steps")
@@ -2177,8 +2307,9 @@ def outofcore_recipe(dev, launches) -> None:
     ranks_agree("10f valid", exp.best_valid, incore, gaps)
     again = Experiment(make_parser().parse_args(argv)).scaleout.restore(fout + ".sharded")
     reset_counts()
-    tr.fit(epochs=1)
-    again.fit(epochs=1)
+    with deterministic():  # as 7f: no atomics' order parts the two runs
+        tr.fit(epochs=1)
+        again.fit(epochs=1)
     counts = read_counts()
     for name in launches:
         launches[name] += counts[name]
@@ -2202,12 +2333,13 @@ def host_waits(run) -> int:
 
 
 def serving(graph, params, dev) -> None:
-    """10g: the serving engines on 10a's trained TransE-L1, at
-    `scripts/serving_bench.py`'s defaults, filtered by the train triples."""
+    """10g: the serving engines on 10a's trained TransE-L1, on
+    `skge_torch.serving_bench`'s query stream and timing at its defaults,
+    filtered by the train triples; then `serving_bench.main()` itself at its
+    defaults (random params, random known triples)."""
     model = TransE(graph.n_entities, graph.n_relations, 150)
-    rng = np.random.default_rng(0)
-    queries = np.stack([rng.integers(0, graph.n_entities, SERVE.nqueries),
-                        rng.integers(0, graph.n_relations, SERVE.nqueries)], axis=1)
+    _, queries = serving_bench.query_stream(graph.n_entities, graph.n_relations,
+                                            SERVE.nknown, SERVE.nqueries)
     known, k, n = graph.train, SERVE.k, SERVE.nqueries
     t0 = time.perf_counter()
     exact = LinkPredictor(model, params, known=known, batch_size=SERVE.batch, device=dev)
@@ -2219,12 +2351,7 @@ def serving(graph, params, dev) -> None:
         return pred
 
     def timed(pred, what):
-        pred.top_k(queries[: SERVE.batch], k)  # warm-up
-        _sync(dev)
-        t0 = time.perf_counter()
-        res = pred.top_k(queries, k)
-        _sync(dev)
-        dt = time.perf_counter() - t0
+        res, dt = serving_bench.timed_top_k(pred, queries, k, dev)
         check(res.entities.shape == (n, k) and np.isfinite(res.scores).all(),
               f"10g {what}: (n, k) finite results")
         log(f"[10g] {what}: {n} queries in {dt:.3f} s, {n / dt:.1f} queries/s "
@@ -2272,7 +2399,7 @@ def serving(graph, params, dev) -> None:
     streamed = filtered_like_exact(StreamedLinkPredictor(
         model, params, batch_size=SERVE.batch, chunk=SERVE.chunk, device=dev))
     sres, sdt = timed(streamed, f"StreamedLinkPredictor chunk {SERVE.chunk}")
-    batches = -(-n // SERVE.batch) + 1  # the timed run and its warm-up batch
+    batches = 2 * -(-n // SERVE.batch)  # the timed run and its warm-up pass
     log(f"[10g] streamed: {streamed.bytes_uploaded / batches / 1e6:.3f} MB uploaded a "
         f"query batch of {SERVE.batch}")
     if dev.type == "cuda":
@@ -2290,6 +2417,11 @@ def serving(graph, params, dev) -> None:
     agree("10g streamed vs in-core", SimpleNamespace(
         entities=sres.entities[: SERVE.cpu_queries],
         scores=sres.scores[: SERVE.cpu_queries]), ref11)
+    argv = (["--cpu"] if dev.type == "cpu" else []) + SERVE.bench
+    (line, res), _ = _run_logged("10g", serving_bench.main, argv)
+    bench = serving_bench.parse_args(argv)
+    check(line["metric"] == "transe_filtered_top10_queries_per_s" and line["value"] > 0
+          and res.entities.shape == (bench.nqueries, bench.k), "10g: the serving bench's line")
 
 
 def outofcore_gates(dev, launches) -> None:
@@ -3423,6 +3555,183 @@ def quality(dev, launches) -> dict:
     return {sub: b - a for sub, a, b in zip("abcd", t, t[1:])}
 
 
+def _run_logged(tag, fn, *args, **kw):
+    """`fn(*args, **kw)` with its standard output captured, then logged
+    line by line under `tag`; returns (its result, its JSON lines)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn(*args, **kw)
+    lines = []
+    for line in out.getvalue().splitlines():
+        log(f"[{tag}] {line}")
+        if line.startswith("{") and line.endswith("}"):
+            lines.append(json.loads(line))
+    return result, lines
+
+
+def flagship_1m(dev, launches):
+    """15a: `flagship.run` at JAX's 1M shape; returns (trainer, args)."""
+    cpu = ["--cpu"] if dev.type == "cpu" else []
+    args = flagship.parse_args(cpu + FLAGSHIP_1M + ["--ckpt", f"{OUT}/15a_ckpt"])
+    shutil.rmtree(args.ckpt, ignore_errors=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    (report, tr), lines = _run_logged("15a", flagship.run, args, dev)
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"[15a] report {json.dumps(report)}; {dt:.1f} s; kernel launches {counts}")
+    phases = [line.get("phase") for line in lines]
+    check(phases == ["build", "init"] + ["train"] * args.epochs + ["eval"],
+          f"15a: every phase line, in order ({phases})")
+    check(np.isfinite(report["losses"]).all(), "15a: finite losses")
+    check(report["ckpt_bit_equal"], "15a: the restored tables equal the saved ones")
+    check(report["partitioner"] == "native", "15a: the native partitioner")
+    check(np.isfinite(report["mrr"]) and 0 < report["mrr"] <= 1, "15a: a finite MRR")
+    batch = -(-tr.bucket_len // max(1, min(tr.nbatches, tr.bucket_len)))
+    check((tr.part_size, batch) == (FLAGSHIP_1M_SHAPE.part_size, FLAGSHIP_1M_SHAPE.batch),
+          f"15a: S = {tr.part_size} and a batch of {batch}, as phase 3 checked K1 at")
+    if dev.type == "cuda":
+        steps = report["steps_per_epoch"]
+        check(report["k1_launches"] == [steps] * args.epochs,
+              f"15a: K1 launches {report['k1_launches']} equal the steps ({steps} an epoch)")
+        total = steps * args.epochs + 2 * report["profile"]["steps"]  # 2 profiled epochs
+        check(counts == _launches(total, 0, total), f"15a: launches {counts}, want {total}")
+    for name in launches:
+        launches[name] += counts[name]
+    return tr, args
+
+
+def flagship_host_buckets(args, dev, launches) -> None:
+    """15b: one off-diagonal bucket epoch at 15a's shape with the bucket
+    stack in pinned host memory and on the card, from the same state,
+    permutation and pools."""
+    ds, _ = flagship.load_kg(args, dev)
+    aug = add_reciprocal_relations(ds)
+    trs = [flagship.make_trainer(args, aug, dev, host_buckets=hb) for hb in (True, False)]
+    host, resident = trs
+    check(host._all_local.device.type == "cpu" and resident._all_local.device.type
+          == dev.type, "15b: the stack in host memory and on the device")
+    pi, pj = next(b for b in host._bucket_order() if b[0] != b[1])
+    bi = host._bucket_row[(pi, pj)]
+    check(bool(torch.equal(host._all_local[bi].to(dev), resident._all_local[bi]))
+          and bool(torch.equal(host._all_valid[bi].to(dev), resident._all_valid[bi])),
+          "15b: the bucket's uploaded ids and mask bit-equal to the device stack's")
+    perm = torch.randperm(host.bucket_len, generator=torch.Generator().manual_seed(1))
+    nb = max(1, min(host.nbatches, host.bucket_len))
+    seen = []  # the ids and mask each epoch receives on the card
+
+    def spied(epoch):
+        def run(state, xs, valid, perm=None):
+            seen.append((xs, valid))
+            return epoch(state, xs, valid, perm)
+        return run
+
+    reset_counts()
+    sorted_before = cuda_segment.deterministic_launches
+    losses = []
+    with deterministic():
+        for tr in trs:
+            tr._epochs[False] = spied(tr._epoch_fn(False))
+            losses.append(float(tr._bucket_epoch(pi, pj, perm=perm)[0]))
+            tr.flush()
+    counts = read_counts()
+    sorted_launches = cuda_segment.deterministic_launches - sorted_before
+    check(all(bool(torch.equal(a, b)) for a, b in zip(*seen)) and seen[0][0].dtype
+          == torch.int64, "15b: the epoch's ids and mask bit-equal from either stack")
+    if dev.type == "cuda":
+        check(counts == _launches(2 * nb, 0, 2 * nb) and sorted_launches == 2 * nb,
+              f"15b: launches {counts}, {sorted_launches} sorted")
+    for name in launches:
+        launches[name] += counts[name]
+    pairs = [(host.e_host[kk], resident.e_host[kk]) for kk in host.e_host]
+    pairs += [(host.dev_params[kk], resident.dev_params[kk]) for kk in host.dev_params]
+    pairs += [(host.dev_opt[kk][sn], resident.dev_opt[kk][sn])
+              for kk in host.dev_opt for sn in host.dev_opt[kk]]
+    equal = all(bool(torch.equal(a, b)) for a, b in pairs)
+    err = max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
+    log(f"[15b] bucket {(pi, pj)}, {nb} steps, host_buckets=True against False, "
+        f"deterministic algorithms: the same ids and mask, loss {losses[0]:.9e} and "
+        f"{losses[1]:.9e}; tables, params and slots "
+        f"{'bit-equal' if equal else f'DIFFER by up to {err:.3e}'}")
+    check(losses[0] == losses[1], "15b: the same loss bit for bit")
+    check(equal, "15b: the tables, params and slots bit-equal")
+
+
+def flagship_ranks(tr, args, dev) -> None:
+    """15c: 15a's streamed ranks against `FilteredRankingEval` on the same
+    params (filtered by the known triples whose keys the queries ask for),
+    by the RANK_GAP rule."""
+    ds, _ = flagship.load_kg(args, dev)
+    test = ds.test[: args.eval_n]
+    t0 = time.perf_counter()
+    got = tr.evaluate(test, add_reciprocal_relations(ds).all_triples(),
+                      batch_size=args.eval_batch, reciprocal=True)
+    t1 = time.perf_counter()
+    params = {k: torch.as_tensor(v, device=dev) for k, v in tr.params().items()}
+    wrapped = ReciprocalEvalWrapper(tr.full_model)
+    known = ds.all_triples()
+    known = np.concatenate([rows_with_keys(known, test, 0), rows_with_keys(known, test, 1)])
+    want = FilteredRankingEval(wrapped, test, known, batch_size=args.eval_batch)(params)
+    gaps = _min_gaps(wrapped, params, test, dev)
+    log(f"[15c] streamed ranking of {len(test)} queries in {t1 - t0:.2f} s, in-core in "
+        f"{time.perf_counter() - t1:.2f} s")
+    ranks_agree("15c", got, want, gaps)
+
+
+def profile_step_phase(dev, launches) -> None:
+    """15d: `python -m skge_torch.profile_step` at its defaults, one epoch."""
+    argv = (["--cpu"] if dev.type == "cpu" else []) + PROFILE_STEP
+    reset_counts()
+    report, _ = _run_logged("15d", profile_step.main, argv)
+    counts = read_counts()
+    args = profile_step.parse_args(argv)
+    steps = (1 + args.epochs) * args.nbatches  # the full phase's warm-up and timed epochs
+    if dev.type == "cuda":
+        check(counts == _launches(steps, 0, steps), f"15d: launches {counts}")
+    for name in launches:
+        launches[name] += counts[name]
+    ms = report["epoch_ms"]
+    check(all(v > 0 for v in ms.values()) and ms["sample"] < ms["full"],
+          f"15d: the phases' epochs ({ms})")
+
+
+def ooc_ce_ab_phase(dev, launches) -> None:
+    """15e: `python -m skge_torch.ooc_ce_ab`, full CE at P=1 and sampled CE
+    at P=2, two epochs each with a validation each."""
+    argv = (["--cpu"] if dev.type == "cpu" else []) + OOC_CE_AB
+    reset_counts()
+    rows, _ = _run_logged("15e", ooc_ce_ab.main, argv)
+    counts = read_counts()
+    args = ooc_ce_ab.parse_args(argv)
+    aug = add_reciprocal_relations(ooc_ce_ab.load_kg(args, dev))
+    sampled = ooc_ce_ab.make_trainer(args, aug, "sampled_ce", 2, dev)
+    steps = args.epochs * _ooc_steps(sampled)  # full CE launches none
+    if dev.type == "cuda":
+        check(counts == _launches(steps, 0, steps), f"15e: launches {counts}, want {steps}")
+    for name in launches:
+        launches[name] += counts[name]
+    check([r["arm"] for r in rows] == args.arms.split(",")
+          and all(0 < r["mrr"] <= 1 for r in rows), "15e: a finite row per arm")
+
+
+def flagship_phase(dev, launches) -> dict:
+    """Phase 15: the out-of-core flagship and the three entry points beside
+    it; returns its sub-phases' seconds."""
+    t = [time.perf_counter()]
+    tr, args = flagship_1m(dev, launches)
+    t.append(time.perf_counter())
+    flagship_host_buckets(args, dev, launches)
+    t.append(time.perf_counter())
+    flagship_ranks(tr, args, dev)
+    del tr
+    t.append(time.perf_counter())
+    profile_step_phase(dev, launches)
+    t.append(time.perf_counter())
+    ooc_ce_ab_phase(dev, launches)
+    t.append(time.perf_counter())
+    return {sub: b - a for sub, a, b in zip("abcde", t, t[1:])}
+
+
 def main(argv) -> int:
     if argv not in ([], ["--kernel-times"]):
         print("usage: python3 chip_smoke.py [--kernel-times]", file=sys.stderr)
@@ -3506,6 +3815,8 @@ def main(argv) -> int:
     compat_phase(fb15k, wn18, dev, launches)
     t_13 = time.perf_counter()
     t_14 = quality(dev, launches)
+    t_15s = time.perf_counter()
+    t_15 = flagship_phase(dev, launches)
     t_end = time.perf_counter()
     log(f"[time] phases 1-2 {t_build - t0:.1f} s, 3 {t_kernels - t_build:.1f} s, "
         f"4 {t_train - t_kernels:.1f} s (graphs included), 5-6 {t_eval - t_train:.1f} s, "
@@ -3517,8 +3828,9 @@ def main(argv) -> int:
         f"10c {t_10c - t_10a:.1f}, 10d {t_10d - t_10c:.1f}, 10e {t_10e - t_10d:.1f}, "
         f"10f {t_10f - t_10e:.1f}, 10g {t_10g - t_10f:.1f}, 10h {t_10 - t_10g:.1f}), "
         f"11 {t_11 - t_10:.1f} s, 12 {t_12 - t_11:.1f} s, 13 {t_13 - t_12:.1f} s, "
-        f"14 {t_end - t_13:.1f} s (" + ", ".join(f"14{sub} {s:.1f}" for sub, s in t_14.items())
-        + ")")
+        f"14 {t_15s - t_13:.1f} s (" + ", ".join(f"14{sub} {s:.1f}" for sub, s in t_14.items())
+        + f"), 15 {t_end - t_15s:.1f} s ("
+        + ", ".join(f"15{sub} {s:.1f}" for sub, s in t_15.items()) + ")")
     # each kernel at the TransE or RESCAL slice's shape, its other timed
     # shapes under "shapes"
     log(json.dumps({"kernels": [{

@@ -28,8 +28,16 @@
 // Bound. T*D*4 bytes in (the gradient rows, 55 MB at the iid TransE
 // step's T = 91,808, D = 152) and R*D*4 bytes out: reading the input
 // bounds it. Atomics land in no fixed order, so the fp32 summation order,
-// and so the last bits of the result, vary from run to run; a
-// deterministic sort-plus-segmented-reduce variant is later work.
+// and so the last bits of the result, vary from run to run.
+//
+// Deterministic variant (skge_segment_sum_sorted_f32). The caller passes
+// the ids sorted by a stable sort and the permutation that sorts them.
+// The thread of (sorted position i, piece c) that heads a run of equal
+// ids sums that run's rows in their original order, starting from 0, and
+// stores the sum with a plain write: no atomics, the same bits on every
+// run, and the order of a sequential scatter. Other threads return after
+// two id loads. A run is summed by one thread, so a hot id serialises;
+// this variant is for runs that must repeat bit for bit, not for speed.
 //
 // Offsets are 64-bit: T*D reaches ~2e9 for wide (d*d) rows.
 
@@ -95,6 +103,42 @@ __global__ void segment_sum_f32_kernel(const int64_t* __restrict__ idx,
   }
 }
 
+__device__ __forceinline__ void accumulate(float& acc, float x) { acc += x; }
+__device__ __forceinline__ void accumulate(float4& acc, float4 x) {
+  acc.x += x.x;
+  acc.y += x.y;
+  acc.z += x.z;
+  acc.w += x.w;
+}
+
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+    segment_sum_sorted_kernel(const int64_t* __restrict__ sorted,
+                              const int64_t* __restrict__ order,
+                              const V* __restrict__ grads, V* __restrict__ out,
+                              const int64_t T, const int64_t pieces,
+                              const int64_t R) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  int64_t i, c, di, dc;
+  divmod(first, pieces, i, c);
+  divmod(stride, pieces, di, dc);
+  for (; i < T; i += di, c += dc) {
+    if (c >= pieces) {
+      c -= pieces;
+      ++i;
+      if (i >= T) break;
+    }
+    const int64_t r = sorted[i];
+    if (r < 0 || r >= R || (i > 0 && sorted[i - 1] == r)) continue;
+    V acc = {};
+    for (int64_t j = i; j < T && sorted[j] == r; ++j) {
+      accumulate(acc, __ldg(grads + order[j] * pieces + c));
+    }
+    out[r * pieces + c] = acc;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -125,6 +169,35 @@ int skge_segment_sum_f32(const void* idx, const void* grads, void* out,
     const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
     segment_sum_f32_kernel<<<grid, dim3(kCols, kRows), 0, s>>>(
         i, static_cast<const float*>(grads), static_cast<float*>(out), T, D, R);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The deterministic variant: `sorted` holds the T ids in stable-sorted
+// order, `order` the permutation that sorts them (sorted[i] ==
+// idx[order[i]]). The caller zero-fills `out`. vector != 0 as above.
+int skge_segment_sum_sorted_f32(const void* sorted, const void* order,
+                                const void* grads, void* out, int64_t T,
+                                int64_t D, int64_t R, int vector, void* stream) {
+  if (vector && (D % 4 != 0 || reinterpret_cast<uintptr_t>(grads) % 16 != 0 ||
+                 reinterpret_cast<uintptr_t>(out) % 16 != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (T <= 0 || D <= 0 || R <= 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* si = static_cast<const int64_t*>(sorted);
+  const auto* oi = static_cast<const int64_t*>(order);
+  const int64_t pieces = vector ? D / 4 : D;
+  int64_t blocks = (T * pieces + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  if (vector) {
+    segment_sum_sorted_kernel<float4><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        si, oi, static_cast<const float4*>(grads), static_cast<float4*>(out), T,
+        pieces, R);
+  } else {
+    segment_sum_sorted_kernel<float><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        si, oi, static_cast<const float*>(grads), static_cast<float*>(out), T,
+        pieces, R);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,9 +24,12 @@ code moves them to the device as int64.
 from __future__ import annotations
 
 import logging
+import os
 import pickle
+import tempfile
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -628,6 +631,48 @@ def true_triple_index(triples: np.ndarray):
     t = np.asarray(triples, np.int64).reshape(-1, 3)
     return (_group_unique(t[:, 0], t[:, 2], t[:, 1]),
             _group_unique(t[:, 1], t[:, 2], t[:, 0]))
+
+
+def cached_dataset(path, n_entities: int, n_relations: int,
+                   build: Callable[[], Dataset]) -> Tuple[Dataset, bool]:
+    """The train, valid and test splits read from the npz at `path`, or
+    `build()`'s, written there whole under a temporary name and renamed, so
+    a concurrent run sees the file complete or not at all. Returns
+    (dataset, whether it was read)."""
+    path = Path(path)
+    if path.exists():
+        with np.load(path) as z:
+            return Dataset(train=z["train"], valid=z["valid"], test=z["test"],
+                           n_entities=n_entities, n_relations=n_relations), True
+    ds = build()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".npz.tmp", dir=path.parent)
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, train=ds.train, valid=ds.valid, test=ds.test)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return ds, False
+
+
+def rows_with_keys(triples: np.ndarray, queries: np.ndarray, col: int) -> np.ndarray:
+    """The rows of `triples` whose (column `col`, relation) pair is also
+    some row of `queries`' (col 0: the (s, p) keys of object queries, col
+    1: the (o, p) keys of subject queries), in their order: the only known
+    triples a filtered ranking of `queries` in that direction reads, so
+    `true_triple_index` over them gives the same ranks as over all of
+    `triples`, in O(len(triples) log len(queries)) host work."""
+    t = np.asarray(triples).reshape(-1, 3)
+    q = np.asarray(queries).reshape(-1, 3)
+    if not len(t) or not len(q):
+        return t[:0]
+    width = int(max(t[:, 2].max(), q[:, 2].max())) + 1
+    want = np.unique(q[:, col].astype(np.int64) * width + q[:, 2])
+    have = t[:, col].astype(np.int64) * width + t[:, 2]
+    at = np.minimum(np.searchsorted(want, have), len(want) - 1)
+    return t[want[at] == have]
 
 
 def unigram_logits(

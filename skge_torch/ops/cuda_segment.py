@@ -10,9 +10,15 @@ negative ids do not wrap. It is the port of `segment_sum_pallas`
   the same function (fp32 or fp64), which the CPU tests run and which the
   kernel is checked against on the card.
 
+Under `torch.use_deterministic_algorithms(True)` a CUDA call takes the
+kernel's deterministic variant: the ids are stable-sorted on the card and
+each row's occurrences are summed in their order, so a run repeats bit for
+bit (PyTorch's own `index_add_` switches the same way).
+
 `launches` counts kernel launches, so a run can show that its scatters went
 through the kernel; `vector_launches` counts those of them that took the
-kernel's 16-byte path (D % 4 == 0, grads and out 16-byte aligned).
+kernel's 16-byte path (D % 4 == 0, grads and out 16-byte aligned), and
+`deterministic_launches` those that took the deterministic variant.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from skge_torch.ops import _build
 
 launches = 0
 vector_launches = 0
+deterministic_launches = 0
 
 
 def segment_sum_reference(
@@ -51,6 +58,11 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_void_p
         ]
         fn.restype = ctypes.c_int
+        det = lib.skge_segment_sum_sorted_f32
+        det.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 + [
+            ctypes.c_int, ctypes.c_void_p
+        ]
+        det.restype = ctypes.c_int
         lib.skge_cuda_error_string.argtypes = [ctypes.c_int]
         lib.skge_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -62,9 +74,10 @@ def segment_sum(
     """Sum `grads` (T, D) into a (num_rows, D) table by `indices` (T,).
 
     On a CUDA tensor the kernel's fp32 atomics sum in no fixed order, so the
-    last bits vary from run to run.
+    last bits vary from run to run, unless deterministic algorithms are on
+    (`torch.use_deterministic_algorithms`): then the sorted variant runs.
     """
-    global launches, vector_launches
+    global launches, vector_launches, deterministic_launches
     if indices.dim() != 1 or grads.dim() != 2:
         raise ValueError(
             f"want indices (T,) and grads (T, D), got {tuple(indices.shape)} "
@@ -97,13 +110,21 @@ def segment_sum(
     if t == 0 or d == 0 or num_rows == 0:
         return out
     vector = d % 4 == 0 and grads.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    deterministic = torch.are_deterministic_algorithms_enabled()
     lib = _lib()
     with torch.cuda.device(grads.device):
-        err = lib.skge_segment_sum_f32(
-            indices.data_ptr(), grads.data_ptr(), out.data_ptr(),
-            t, d, num_rows, int(vector),
-            torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if deterministic:
+            ids, order = torch.sort(indices, stable=True)
+            err = lib.skge_segment_sum_sorted_f32(
+                ids.data_ptr(), order.data_ptr(), grads.data_ptr(),
+                out.data_ptr(), t, d, num_rows, int(vector), stream,
+            )
+        else:
+            err = lib.skge_segment_sum_f32(
+                indices.data_ptr(), grads.data_ptr(), out.data_ptr(),
+                t, d, num_rows, int(vector), stream,
+            )
     if err != 0:
         raise RuntimeError(
             "segment_sum kernel launch failed: "
@@ -111,4 +132,5 @@ def segment_sum(
         )
     launches += 1
     vector_launches += vector
+    deterministic_launches += deterministic
     return out

@@ -37,17 +37,15 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import os
-import tempfile
 import time
 from dataclasses import replace
 from pathlib import Path
 from typing import Callable, List, Optional, Tuple
 
-import numpy as np
 import torch
 
-from skge_torch.data import Dataset, add_reciprocal_relations, latent_kg
+from skge_torch.data import (Dataset, add_reciprocal_relations, cached_dataset,
+                             latent_kg)
 from skge_torch.evaluation import FilteredRankingEval, ReciprocalEvalWrapper
 from skge_torch.models import (ERMLP, RESCAL, ComplEx, ConvE, DistMult, HolE,
                                PairRE, QuatE, RotatE, SimplE, TransE, TransH,
@@ -164,32 +162,17 @@ def cache_path(args, device: torch.device) -> Path:
 
 def load_kg(args, device: torch.device) -> Dataset:
     """The suite's latent KG, built on `device` or read from the port's
-    cache. A new cache file is written whole under a temporary name and
-    renamed, so a concurrent run sees it complete or not at all."""
-    path = cache_path(args, device)
-    t0 = time.perf_counter()
-    if path.exists():
-        with np.load(path) as z:
-            ds = Dataset(train=z["train"], valid=z["valid"], test=z["test"],
-                         n_entities=args.entities, n_relations=args.relations)
-        print(f"  loaded from cache in {time.perf_counter() - t0:.0f}s", flush=True)
-        return ds
+    cache (`data.cached_dataset`)."""
     n_held = held_out(args.ntrain)
-    ds = latent_kg(
-        n_entities=args.entities, n_relations=args.relations,
-        n_train=args.ntrain, n_valid=n_held, n_test=n_held,
-        latent_dim=args.latent_dim, seed=0, kind=args.kg, device=device,
-    )
-    path.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".npz.tmp", dir=path.parent)
-    try:
-        with os.fdopen(fd, "wb") as f:
-            np.savez(f, train=ds.train, valid=ds.valid, test=ds.test)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    print(f"  built in {time.perf_counter() - t0:.0f}s", flush=True)
+    t0 = time.perf_counter()
+    ds, cached = cached_dataset(
+        cache_path(args, device), args.entities, args.relations,
+        lambda: latent_kg(n_entities=args.entities, n_relations=args.relations,
+                          n_train=args.ntrain, n_valid=n_held, n_test=n_held,
+                          latent_dim=args.latent_dim, seed=0, kind=args.kg,
+                          device=device))
+    print(f"  {'loaded from cache' if cached else 'built'} in "
+          f"{time.perf_counter() - t0:.0f}s", flush=True)
     return ds
 
 

@@ -537,7 +537,7 @@ def test_cache_never_reads_jax_file_and_appears_only_complete(cache_dir, monkeyp
             assert z["train"].shape == (300, 3) and z["test"].shape == (50, 3)
         replaces.append((src, str(dst)))
         real_replace(src, dst)
-    monkeypatch.setattr(qs.os, "replace", replace)
+    monkeypatch.setattr(os, "replace", replace)
 
     built = qs.load_kg(args, torch.device("cpu"))
     assert "built in" in capsys.readouterr().out

@@ -101,3 +101,58 @@ def test_segment_sum_kernel_matches_plain_on_card():
             before[0] + launched, before[1] + (launched if vector else 0))
         want = cuda_segment.segment_sum_reference(idx, g, r)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_segment_sum_plain_under_deterministic_algorithms():
+    """A CPU tensor takes the plain version whether or not deterministic
+    algorithms are on, and launches nothing."""
+    rng = np.random.default_rng(7)
+    idx = torch.as_tensor(rng.integers(-3, 40, 2000))
+    g = torch.as_tensor(rng.normal(size=(2000, 12)).astype(np.float32))
+    before = (cuda_segment.launches, cuda_segment.deterministic_launches)
+    torch.use_deterministic_algorithms(True)
+    try:
+        got = cuda_segment.segment_sum(idx, g, 37)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(got, cuda_segment.segment_sum_reference(idx, g, 37))
+    assert (cuda_segment.launches, cuda_segment.deterministic_launches) == before
+
+
+@pytest.mark.cuda
+def test_segment_sum_deterministic_variant_on_card():
+    """Under deterministic algorithms the sorted variant runs: two calls
+    equal bit for bit, within 1e-5 of the plain version, on both paths."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    rng = np.random.default_rng(8)
+    # (t, r, d, low id, high id, storage offset in floats, 16-byte path)
+    for t, r, d, lo, hi, shift, vector in [
+        (10_688, 14_951, 104, 0, 14_951, 0, True),  # RESCAL's E, a hot pool
+        (15_520, 16_296, 152, -50, 16_346, 0, True),
+        (15_520, 16_296, 151, 0, 16_296, 0, False),
+        (15_520, 16_296, 152, 0, 16_296, 1, False),
+        (4_832, 1_345, 1, 0, 1_345, 0, False),
+        (64, 17, 22_500, 0, 19, 0, True),
+        (0, 10, 5, 0, 10, 0, False),
+    ]:
+        idx = torch.as_tensor(rng.integers(lo, hi, t), device="cuda")
+        flat = torch.as_tensor(
+            rng.normal(size=t * d + shift).astype(np.float32), device="cuda"
+        )
+        g = flat[shift:].view(t, d)
+        before = (cuda_segment.launches, cuda_segment.vector_launches,
+                  cuda_segment.deterministic_launches)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            got = [cuda_segment.segment_sum(idx, g, r) for _ in range(2)]
+        finally:
+            torch.use_deterministic_algorithms(False)
+        torch.cuda.synchronize()
+        n = 2 if t else 0
+        assert (cuda_segment.launches, cuda_segment.vector_launches,
+                cuda_segment.deterministic_launches) == (
+            before[0] + n, before[1] + (n if vector else 0), before[2] + n)
+        assert torch.equal(got[0], got[1])
+        want = cuda_segment.segment_sum_reference(idx, g, r)
+        torch.testing.assert_close(got[0], want, rtol=1e-5, atol=1e-5)
