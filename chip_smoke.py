@@ -39,14 +39,19 @@ Phases, each fatal:
    the partitioned step's one scatter at 11a's shape (T = 16,545 into the
    16,296 rows of the stacked shard and relation tables) and full CE's
    (T = 14,496),
-   and timed beside `index_add_` alone; compat RESCAL's W scatter on the
+   and timed beside `index_add_` alone (into a table already zeroed) and
+   beside `torch.zeros` + `index_add_` (K1's whole function, its output's
+   zero fill included); compat RESCAL's W scatter on the
    iid pairwise path (13b: T = 19,328, 4 rows a positive, R = 1,345,
    D = 10,000, no count channel) and its counts (D = 1);
    its scalar path also timed at D = 151
    and at RESCAL's W counts (D = 1), beside `index_add_`; both kernels at
    the quality suite's WN18 shapes (phase 14: K1 at T = 12,437, 6,293,
    11,022 and 18,395, and iid RESCAL's W at D = 10,000, timed at the
-   first, third and last; K2 at T = 1,415, R = 18);
+   first, third and last; K2 at T = 1,415, R = 18); K1 at phase 16's
+   shapes, checked and timed: rotate_probe's RotatE E (T = 14,744,
+   R = 40,943, D = 36) and R (T = 3,276, R = 18, D = 20), and bench's
+   k=4,096 rows (T = 18,592, R = 16,296, D = 152);
    K1's deterministic variant (sorted ids, each row summed in order, no
    atomics) at 7f's and 15b's shapes and the edge shapes: the same bits
    in two calls, within 1e-5 of the plain version, timed at 7f's E and
@@ -295,6 +300,33 @@ Phases, each fatal:
       full CE, a row per arm.
    Phase 3 checks and times K1 at the full 10^7 flagship's step
    (`FLAGSHIP_SHAPE`: R = 2S + 128 = 2,938,776, D = 68) and at 15a's.
+16. `python -m skge_torch.bench` and the last entry points of the JAX
+   system's tools, each run with the launch counts set to 0 just before it
+   and held to their exact values after:
+   16a `bench.main()` at bench.py's defaults (FB15k's shape, TransE-L1,
+      k=1,024, a warm-up and 3 timed epochs of 100 steps): its JSON line,
+      400 K1 on the 16-byte path and no K2, a finite positive `value`, and
+      the step time it implies beside phase 4's warm run (no ratio gate);
+   16b `bench --all --epochs 1`'s rows (`bench.all_rows`, each through
+      `bench.run`): every ALL_ROWS row's line in order, each row's exact
+      kernel calls (`BENCH_ROW_CALLS`: RESCAL's K2, none for full and
+      sampled CE);
+   16c `python -m skge_torch.verify_selfadv` at its size with its asserts
+      (the loss drops 40%, MRR > 0.05), one seed each of `verify_ce.run`
+      and `verify_n3.run`; the Trainer's default `unique` aggregation and
+      full CE launch no kernel;
+   16d `python -m skge_torch.rotate_probe` at WN18's widths, 2 epochs,
+      gamma 6, the paper, nunif and oracle variants: 2 K1 a step, the
+      oracle row's MRR; then the oracle with no epoch: its test MRR and
+      H@10 at least JAX's at the generator's latents (0.8651, 1.0), the
+      card's ranks equal to the CPU's on the same KG and params by the
+      RANK_GAP rule;
+   16e one `python -m skge_torch.density_curve` point at its widths (10,000
+      entities, d=32, translational, density 3.45), 2 epochs (full CE: no
+      kernel);
+   16f `python -m skge_torch.run_rescal` on FB15k's shape with the shared
+      pool and the dense scatters, one epoch and its validation: 1 K2 and
+      2 K1 a step.
 
 Prints one JSON line with the kernel table, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.
@@ -327,7 +359,9 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from skge_torch import compat, flagship, ooc_ce_ab, profile_step, quality_suite, serving_bench
+from skge_torch import (bench, compat, density_curve, flagship, ooc_ce_ab, profile_step,
+                        quality_suite, rotate_probe, run_rescal, serving_bench, verify_ce,
+                        verify_n3, verify_selfadv)
 from skge_torch import sample as host_sample
 from skge_torch import (ERMLP, MODELS, RESCAL, AdaGrad, Adam, BernoulliSampler,
                         CorruptedSampler, DistMult, FilteredRankingEval, HolE,
@@ -344,7 +378,7 @@ from skge_torch.data import (add_reciprocal_relations, bernoulli_probs, rows_wit
                              synthetic_kg, type_index_arrays, unigram_logits)
 from skge_torch.evaluation import classification_negatives
 from skge_torch.experiment import Experiment, make_parser
-from skge_torch.models import conve
+from skge_torch.models import RotatE, conve
 from skge_torch.models.base import ACTIVATIONS
 from skge_torch.optim import EPS
 from skge_torch.ops import _build, cuda_outer, cuda_segment
@@ -587,6 +621,45 @@ GEOMETRY_KG = {
     "rotational": dict(n_entities=2000, n_relations=12, n_train=16000, n_test=400,
                        latent_dim=16, seed=6, kind="rotational"),
 }
+# phase 16: `python -m skge_torch.bench` and the last entry points. Each
+# `--all` row's kernel calls a step (K1, K2, K1 on the 16-byte path); the
+# rows not listed scatter E, R and their other row tables of one width in
+# one K1 call. RotatE, PairRE and ConvE hold rows of two widths; full CE
+# updates whole tables, and sampled CE keeps its step factory's `unique`
+# aggregation (index_add_ over torch.unique), as the JAX package's bench does
+BENCH_ROW_CALLS = {
+    "--model rescal --ncomp 100": (2, 1, 1),
+    "--model rotate": (2, 0, 2),
+    "--model pairre": (2, 0, 2),
+    "--model conve --ncomp 128": (2, 0, 2),
+    "--model distmult --ce": (0, 0, 0),
+    "--model distmult --sampled-ce --k 8192": (0, 0, 0),
+    "--model conve --ncomp 128 --ce": (0, 0, 0),
+}
+# 16a: bench.py's defaults; 16b: the --all matrix at bench.py's widths for one
+# timed epoch
+BENCH_DEFAULT: list = []
+BENCH_ALL = ["--all", "--epochs", "1"]
+# 16d: rotate_probe at its widths, depth cut; 16e: one density_curve point at
+# its widths; 16f: run_rescal on the shared pool through the dense scatters
+ROTATE_PROBE = ["--epochs", "2", "--eval-every", "1", "--gammas", "6",
+                "--variants", "paper,nunif,oracle"]
+# the oracle at no epoch: the generator's own latents at rotate_probe's
+# defaults, ranked on the card and on the CPU; JAX's test MRR, H@10 and MR
+# there (RESULTS.md, "Realizability first", a TPU run) are the floor a fault
+# in the full-size KG or in the ranking would fall through
+ROTATE_PROBE_ORACLE = ["--epochs", "0", "--gammas", "6", "--variants", "oracle"]
+ORACLE_JAX = {"mrr": 0.8651, "hits10": 1.0, "mr": 1.4}
+DENSITY_POINT = ["--densities", "3.45", "--geometries", "translational",
+                 "--epochs", "2", "--eval-every", "1"]
+RUN_RESCAL = ["--sampler", "shared", "--aggregate", "dense_pallas", "--ncomp", "100",
+              "--me", "1", "--test-all", "1"]
+
+
+def bench_launches(config: str, steps: int) -> dict:
+    """The kernel calls of `steps` steps of the bench row `config`."""
+    k1, k2, vector = BENCH_ROW_CALLS.get(config, (1, 0, 1))
+    return _launches(k1 * steps, k2 * steps, vector * steps)
 
 
 def check(ok: bool, what: str) -> None:
@@ -727,6 +800,8 @@ def timed_shape(what, times, nbytes, flops, library="index_add_") -> dict:
              "bound_share": b_ms / times["kernel"]}
     if "library" in times:
         shape["library_call"] = library
+    if "library_zeros" in times:  # the library's whole function: zero fill included
+        shape["library_zero_fill_ms"] = times["library_zeros"]
     if "grouping" in times:  # K2's index preparation, part of "ms"
         shape["grouping_ms"] = times["grouping"]
     log(f"[3] {what}: bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.2f} MB, "
@@ -801,7 +876,8 @@ VECTOR_TIMED = ("slice", "iid", "selfadv", "ComplEx, SimplE", "QuatE", "TransR's
                 "partitioned full CE", "RESCAL's E", "mesh iid pointwise",
                 "compat RESCAL's W", "quality suite TransE k=8192, WN18",
                 "quality suite RESCAL's E, WN18", "quality suite iid RESCAL's W, WN18",
-                "flagship 10^7", "flagship 1M")
+                "flagship 10^7", "flagship 1M", "rotate_probe E, WN18",
+                "rotate_probe R, WN18", "bench k=4096")
 
 
 def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
@@ -852,6 +928,12 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
     # DistMult, ComplEx, RotatE) into E and R, RESCAL's E (s, o, the pool),
     # iid x5 (s, o, r and 10 corruptions a positive) and iid RESCAL's W
     b_wn, wn_rows = -(-WN18.n_train // 100), WN18.n_entities + WN18.n_relations
+    # phase 16: rotate_probe at its defaults (WN18's entities and relations,
+    # its batch and its pool of 8,192): RotatE's E (s, o and the pool, 2 x 16
+    # wide) and its R (the batch's relations, 16 phases), each with its count
+    # channel; bench's k=4,096 rows (TransE-L2, HolE) into E and R
+    probe = rotate_probe.parse_args([])
+    b_probe = -(-probe.ntrain // probe.nbatches)
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = [  # name, T, R, D, low id, high id, storage offset, 16-byte path
         ("slice", t_slice, rows, width, 0, rows, 0, True),
@@ -879,6 +961,11 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
          WN18.n_relations, 0, True),
         ("flagship 10^7", *flagship_k1(FLAGSHIP_SHAPE), True),
         ("flagship 1M", *flagship_k1(FLAGSHIP_1M_SHAPE), True),
+        ("rotate_probe E, WN18", 2 * b_probe + probe.k, probe.entities,
+         padded(2 * probe.ncomp), 0, probe.entities, 0, True),
+        ("rotate_probe R, WN18", b_probe, probe.relations, padded(probe.ncomp), 0,
+         probe.relations, 0, True),
+        ("bench k=4096", 3 * _batch_size(TRANSE) + 4096, rows, width, 0, rows, 0, True),
         ("ids<0 and >=R dropped", t_slice, rows, width, -50, rows + 50, 0, True),
         ("D=151 scalar path", t_slice, rows, width - 1, 0, rows, 0, False),
         ("misaligned view", t_slice, rows, width, 0, rows, 1, False),
@@ -912,6 +999,9 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
         scalar = name not in VECTOR_TIMED
         fns["plain"] = cuda_segment.segment_sum_reference
         fns["library"] = lambda i, g, _: table.index_add_(0, i, g)
+        # K1's whole function: its output zeroed, then the sum
+        fns["library_zeros"] = lambda i, g, n: torch.zeros(
+            n, g.shape[1], device=g.device).index_add_(0, i, g)
         what = f"{name}, {variant}" if variant else name
         with deterministic() if variant else contextlib.nullcontext():
             times = time_rounds(fns, (idx, grads, nrows),
@@ -919,7 +1009,8 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
         shapes.append(timed_shape(
             f"T={t}, R={nrows}, D={d}" + (", scalar path" if scalar else "")
             + (f", {name}" if name.startswith(("out-of-core", "partitioned", "RESCAL",
-                                                "mesh", "compat", "quality", "flagship"))
+                                                "mesh", "compat", "quality", "flagship",
+                                                "rotate_probe", "bench"))
                else "") + (f", {variant}" if variant else ""), times,
             nbytes=8 * t + 4 * t * d + 4 * nrows * d, flops=t * d))
     return worst, shapes
@@ -1126,7 +1217,7 @@ def train(cfg, ds, dev, tag="4"):
     """Phase 4 (and 8a): one path of the port. With `cfg.warm`, one step
     runs before the clock and the counts. Returns (model, opt, initial
     state, trained state, {kernel: launches during training}, the card's
-    busy ms per step or None)."""
+    busy ms per step or None, [the host-clock step ms of each run])."""
     model = make_model(cfg, ds)
     opt = AdaGrad(lr=cfg.lr)
     step = make_step(cfg, model, opt, make_sampler(cfg, ds, dev))
@@ -1162,6 +1253,7 @@ def train(cfg, ds, dev, tag="4"):
     if getattr(cfg, "warm", False):  # one step before the clock and the counts
         state, _ = step(state, batches[-1], mask)
     reset_counts()
+    step_ms = []
     for e, run in enumerate(runs):
         _sync(dev)
         t0 = time.perf_counter()
@@ -1169,6 +1261,7 @@ def train(cfg, ds, dev, tag="4"):
         _sync(dev)
         dt = time.perf_counter() - t0
         check(bool(torch.isfinite(m.loss).all()), f"{_label(cfg)} finite losses, run {e}")
+        step_ms.append(1e3 * dt / steps)
         log(f"[{tag}] {_label(cfg)} {cfg.loss} {cfg.sampler} run {e} ({steps} steps): "
             f"violations {int(m.nviolations.sum())}  loss {float(m.loss.sum()):.6e}  "
             f"{dt:.3f} s  step {1e3 * dt / steps:.3f} ms  "
@@ -1188,7 +1281,7 @@ def train(cfg, ds, dev, tag="4"):
     busy = None
     if cfg.profile and dev.type == "cuda":
         busy = profile(step, state, batches, mask, 1e3 * dt / steps, tag)
-    return model, opt, state0, state, launches, busy
+    return model, opt, state0, state, launches, busy, step_ms
 
 
 def _label(cfg) -> str:
@@ -1624,7 +1717,7 @@ def factorization_margin(graph, dev, launches) -> None:
     over its whole tables beside the busy time."""
     for name in FACTORIZATION:
         cfg = SimpleNamespace(**{**vars(FACT), "model": name})
-        model, opt, state0, state, counts, busy = train(cfg, graph, dev, "8a")
+        model, opt, state0, state, counts, busy, _ = train(cfg, graph, dev, "8a")
         want = _launches(cfg.steps, 0, cfg.steps)
         check(dev.type != "cuda" or counts == want,
               f"8a {name}: launches {counts}, want {want}")
@@ -1828,7 +1921,7 @@ def zoo_margin(graph, dev, launches) -> dict:
     {tag: (config, model, trained state)}."""
     trained = {}
     for tag, cfg in zoo_configs().items():
-        model, opt, state0, state, counts, _ = train(cfg, graph, dev, "9a")
+        model, opt, state0, state, counts, *_ = train(cfg, graph, dev, "9a")
         want = _launches(cfg.k1 * cfg.steps, 0, cfg.vector * cfg.steps)
         check(dev.type != "cuda" or counts == want,
               f"9a {tag}: launches {counts}, want {want}")
@@ -2251,15 +2344,16 @@ def _min_gaps(model, params, test, dev) -> np.ndarray:
 
 
 def ranks_agree(tag, got, want, gaps) -> None:
-    """Streamed against in-core ranks on the card: equal wherever no
-    candidate lies within RANK_GAP of the target (a (B, S) and a (B, n_e)
-    sweep may round a score differently), and the MRRs within 1e-4."""
+    """`got` against `want` ranks (streamed against in-core, or the card's
+    against the CPU's): equal wherever no candidate lies within RANK_GAP of
+    the target (a (B, S) and a (B, n_e) sweep may round a score
+    differently), and the MRRs within 1e-4."""
     far = gaps > RANK_GAP
     for a, b, what in ((got.ranks, want.ranks, "filtered"),
                        (got.ranks_raw, want.ranks_raw, "raw")):
         check(bool(np.array_equal(a[far], b[far])),
               f"{tag}: {what} ranks equal where no candidate lies within {RANK_GAP}")
-    log(f"[{tag}] streamed MRR {got.mrr:.6f}, in-core {want.mrr:.6f}; "
+    log(f"[{tag}] MRR {got.mrr:.6f} against {want.mrr:.6f}; "
         f"{int((~far).sum())} of {far.size} ranks with a candidate within {RANK_GAP}, "
         f"{int((got.ranks != want.ranks).sum())} ranks differ")
     check(abs(got.mrr - want.mrr) <= 1e-4, f"{tag}: MRR within 1e-4")
@@ -3732,6 +3826,158 @@ def flagship_phase(dev, launches) -> dict:
     return {sub: b - a for sub, a, b in zip("abcde", t, t[1:])}
 
 
+def _cpu_flag(dev) -> list:
+    return ["--cpu"] if dev.type == "cpu" else []
+
+
+def _counted(tag, what, want, dev, launches) -> None:
+    """The counts since the last `reset_counts`, held to `want` on the card
+    and added to `launches`."""
+    counts = read_counts()
+    log(f"[{tag}] {what}: kernel launches {counts}")
+    if dev.type == "cuda":
+        check(counts == want, f"{tag} {what}: launches {counts}, want {want}")
+    for name in launches:
+        launches[name] += counts[name]
+
+
+def bench_default(dev, launches, phase4_ms) -> None:
+    """16a: `python -m skge_torch.bench` at its defaults; `phase4_ms`, phase
+    4's warm step on the same path, is logged beside its step."""
+    argv = _cpu_flag(dev) + BENCH_DEFAULT
+    args = bench.parse_args(argv)
+    reset_counts()
+    _, (rec,) = _run_logged("16a", bench.main, argv)
+    steps = (1 + args.epochs) * args.nbatches
+    _counted("16a", "bench.py's defaults", _launches(steps, 0, steps), dev,
+             launches)
+    check(rec["metric"] == "transe_fb15k_scored_triples_per_s_per_chip"
+          and rec["unit"] == "triples/s", "16a: bench.py's metric and unit")
+    check(np.isfinite(rec["value"]) and rec["value"] > 0, "16a: a finite positive value")
+    # bench.py's work units an epoch: 2 scores a pair, 2k pairs a positive
+    # (the FB15k-shaped graph keeps all of its --ntrain triples)
+    step_ms = 1e3 * 2 * 2 * args.k * args.ntrain / rec["value"] / args.nbatches
+    log(f"[16a] {rec['value']:.1f} scored triples/s (vs_baseline {rec['vs_baseline']}): "
+        f"{step_ms:.3f} ms a step; phase 4's warm run {phase4_ms:.3f} ms "
+        "(host clock, no gate)")
+
+
+def bench_all(dev, launches) -> None:
+    """16b: `python -m skge_torch.bench --all --epochs 1`'s rows
+    (`bench.all_rows`), each row's kernel calls read around its `run`."""
+    args = bench.parse_args(_cpu_flag(dev) + BENCH_ALL)
+    steps = (1 + args.epochs) * args.nbatches
+    rows = bench.all_rows(args)
+    check([config for config, _ in rows] == [" ".join(r) for r in bench.ALL_ROWS],
+          "16b: one row a row of ALL_ROWS, in order")
+    for config, row_args in rows:
+        reset_counts()
+        t0 = time.perf_counter()
+        rec = {**bench.run(row_args), "config": config}
+        log(f"[16b] {json.dumps(rec)}")
+        _counted("16b", f"{config} ({time.perf_counter() - t0:.1f} s)",
+                 bench_launches(config, steps), dev, launches)
+        check(np.isfinite(rec["value"]) and rec["value"] > 0,
+              f"16b: a finite positive value ({config})")
+
+
+def verify_drivers(dev, launches) -> None:
+    """16c: the loss verify drivers."""
+    reset_counts()
+    _run_logged("16c", verify_selfadv.main, _cpu_flag(dev))  # its own asserts
+    ds = verify_selfadv.load(dev)
+    results = {"ce": verify_ce.run(ds, 0.3, 0.0, 0, dev),
+               "n3": verify_n3.run(ds, 1e-3, 0, dev, lr=1.0)}
+    _counted("16c", "verify_selfadv, verify_ce and verify_n3", _launches(0, 0, 0), dev,
+             launches)
+    for name, (mrr, h10) in results.items():
+        log(f"[16c] verify_{name}.run, seed 0: MRR {mrr:.4f} hits@10 {h10:.4f}")
+        check(0 < mrr <= 1, f"16c: verify_{name}'s MRR finite and positive")
+
+
+def rotate_probe_phase(dev, launches) -> None:
+    """16d: `python -m skge_torch.rotate_probe`, depth cut."""
+    argv = _cpu_flag(dev) + ROTATE_PROBE
+    args = rotate_probe.parse_args(argv)
+    rotate_probe.load_kg(args, dev)  # the KG built (or read) outside the counts
+    reset_counts()
+    rows, _ = _run_logged("16d", rotate_probe.main, argv)
+    steps = len(rows) * args.epochs * args.nbatches  # no variant stops early at 2 epochs
+    _counted("16d", "rotate_probe", _launches(2 * steps, 0, 2 * steps), dev,
+             launches)
+    check([r["tag"] for r in rows] == ["paper-init g=6.0", "nunif g=6.0",
+                                       "oracle-init g=6.0"], "16d: a row a variant")
+    check(all(0 < r["mrr"] <= 1 for r in rows), "16d: finite MRRs")
+    # the generator's own latents, no training: JAX's reading at this shape
+    reset_counts()
+    (oracle,), _ = _run_logged("16d", rotate_probe.main,
+                               _cpu_flag(dev) + ROTATE_PROBE_ORACLE)
+    _counted("16d", "rotate_probe's oracle, no epoch", _launches(0, 0, 0), dev, launches)
+    log(f"[16d] the oracle's test MRR {oracle['mrr']}, H@10 {oracle['hits10']}, MR "
+        f"{oracle['mr']} at the generator's latents (JAX {ORACLE_JAX}); after {args.epochs} "
+        f"epochs MRR {rows[-1]['mrr']}, H@10 {rows[-1]['hits10']}, MR {rows[-1]['mr']}")
+    if dev.type == "cuda":
+        check(oracle["mrr"] >= ORACLE_JAX["mrr"] and oracle["hits10"] >= 0.999,
+              f"16d: the oracle's MRR {oracle['mrr']} and H@10 {oracle['hits10']} "
+              f"at least JAX's {ORACLE_JAX}")
+        # the same ranking on the CPU, of the card's KG
+        args = rotate_probe.parse_args(ROTATE_PROBE_ORACLE)
+        ds = rotate_probe.load_kg(args, dev)
+        model = RotatE(ds.n_entities, ds.n_relations, args.ncomp)
+        latents = rotate_probe.oracle_params(args.entities, args.relations,
+                                             args.latent_dim, args.ncomp)
+        res = {}
+        for d in (dev, torch.device("cpu")):
+            params = {k: torch.as_tensor(v, device=d) for k, v in latents.items()}
+            res[d.type] = FilteredRankingEval(model, ds.test, ds.all_triples(),
+                                              batch_size=1024)(params)
+        params = {k: torch.as_tensor(v, device=dev) for k, v in latents.items()}
+        ranks_agree("16d oracle, card against CPU", res["cuda"], res["cpu"],
+                    _min_gaps(model, params, ds.test, dev))
+
+
+def density_point(dev, launches) -> None:
+    """16e: one `python -m skge_torch.density_curve` point."""
+    out = f"{OUT}/16e.jsonl"
+    if os.path.exists(out):
+        os.unlink(out)
+    reset_counts()
+    rows, _ = _run_logged("16e", density_curve.main,
+                          _cpu_flag(dev) + DENSITY_POINT + ["--out", out])
+    _counted("16e", "density_curve, full CE", _launches(0, 0, 0), dev, launches)
+    check([(r["model"], r["role"]) for r in rows]
+          == [("TransE-L2", "matched"), ("ComplEx", "contrast")]
+          and all(0 < r["mrr"] <= 1 for r in rows), "16e: a finite row a model")
+
+
+def run_rescal_phase(dev, launches) -> None:
+    """16f: `python -m skge_torch.run_rescal`, one epoch."""
+    argv = _cpu_flag(dev) + FB15K_ARGS + RUN_RESCAL
+    nb = make_parser().parse_args(argv).nb
+    out = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        code = run_rescal.main(argv)
+    for line in out.getvalue().splitlines():
+        log(f"[16f] {line}")
+    _counted("16f", "run_rescal, shared pool", _launches(2 * nb, nb, nb), dev,
+             launches)
+    check(code == 0, "16f: run_rescal exits 0")
+
+
+def bench_phase(dev, launches, phase4_ms) -> dict:
+    """Phase 16: `python -m skge_torch.bench` and the last entry points;
+    returns its sub-phases' seconds."""
+    t = [time.perf_counter()]
+    bench_default(dev, launches, phase4_ms)
+    t.append(time.perf_counter())
+    for sub in (bench_all, verify_drivers, rotate_probe_phase, density_point,
+                run_rescal_phase):
+        sub(dev, launches)
+        t.append(time.perf_counter())
+    return {sub: b - a for sub, a, b in zip("abcdef", t, t[1:])}
+
+
 def main(argv) -> int:
     if argv not in ([], ["--kernel-times"]):
         print("usage: python3 chip_smoke.py [--kernel-times]", file=sys.stderr)
@@ -3755,7 +4001,9 @@ def main(argv) -> int:
     launches = dict.fromkeys([*KERNELS, VECTOR], 0)
     trained = {}
     for cfg, tag in PATHS:
-        *run, counts, _ = train(cfg, graphs[cfg.data], dev, tag)
+        *run, counts, _, step_ms = train(cfg, graphs[cfg.data], dev, tag)
+        if tag == "4":
+            phase4_ms = step_ms[-1]  # its warm run, for 16a
         check(counts == expected_launches(cfg),
               f"{cfg.model} {cfg.loss} {cfg.sampler}: launches {counts}, "
               f"want {expected_launches(cfg)}")
@@ -3817,6 +4065,8 @@ def main(argv) -> int:
     t_14 = quality(dev, launches)
     t_15s = time.perf_counter()
     t_15 = flagship_phase(dev, launches)
+    t_16s = time.perf_counter()
+    t_16 = bench_phase(dev, launches, phase4_ms)
     t_end = time.perf_counter()
     log(f"[time] phases 1-2 {t_build - t0:.1f} s, 3 {t_kernels - t_build:.1f} s, "
         f"4 {t_train - t_kernels:.1f} s (graphs included), 5-6 {t_eval - t_train:.1f} s, "
@@ -3829,8 +4079,10 @@ def main(argv) -> int:
         f"10f {t_10f - t_10e:.1f}, 10g {t_10g - t_10f:.1f}, 10h {t_10 - t_10g:.1f}), "
         f"11 {t_11 - t_10:.1f} s, 12 {t_12 - t_11:.1f} s, 13 {t_13 - t_12:.1f} s, "
         f"14 {t_15s - t_13:.1f} s (" + ", ".join(f"14{sub} {s:.1f}" for sub, s in t_14.items())
-        + f"), 15 {t_end - t_15s:.1f} s ("
-        + ", ".join(f"15{sub} {s:.1f}" for sub, s in t_15.items()) + ")")
+        + f"), 15 {t_16s - t_15s:.1f} s ("
+        + ", ".join(f"15{sub} {s:.1f}" for sub, s in t_15.items())
+        + f"), 16 {t_end - t_16s:.1f} s ("
+        + ", ".join(f"16{sub} {s:.1f}" for sub, s in t_16.items()) + ")")
     # each kernel at the TransE or RESCAL slice's shape, its other timed
     # shapes under "shapes"
     log(json.dumps({"kernels": [{

@@ -12,5 +12,6 @@ def resolve_device(device=None, verb: str = "trains") -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"no CUDA device: skge_torch {verb} on the GPU; pass "
-                           "device='cpu' to run on the CPU")
+                           "device='cpu' (--cpu on the command line) to run on "
+                           "the CPU")
     return dev

@@ -102,11 +102,17 @@ def test_port_imports_no_jax():
                    "models/complexe", "models/simple", "models/tucker", "models/quate",
                    "models/rotate", "models/transh", "models/pairre", "models/transr",
                    "models/conve", "compat", "sample", "param", "actfun", "util",
-                   "quality_suite"):
+                   "quality_suite", "bench", "run_transe", "run_hole", "run_rescal",
+                   "run_ermlp", "verify_selfadv", "verify_ce", "verify_n3",
+                   "rotate_probe", "density_curve"):
         assert f"skge_torch/{module}.py" in scanned, module
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
-            # nor the JAX system's scripts/ (imported as top-level modules)
+            # nor the JAX system's scripts/ and root bench.py (imported as
+            # top-level modules)
             assert top not in ("jax", "jaxlib", "skge_tpu", "skge", "scripts",
-                               "quality_suite"), (f, mod)
+                               "quality_suite", "bench", "density_curve",
+                               "rotate_probe", "serving_bench", "_verify_ce",
+                               "_verify_n3", "_verify_selfadv", "run_transe",
+                               "run_hole", "run_rescal", "run_ermlp"), (f, mod)
