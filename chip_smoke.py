@@ -26,7 +26,9 @@ Reference-exact iid negatives (`pairwise_grads_fused`):
 Phases, each fatal:
 
 1. environment: versions, the card's name and power limit; no GPU -> exit 2;
-2. build both kernels from source with nvcc, in parallel;
+2. build both kernels and the grouping by row that K1's deterministic
+   variant and K2 run first (skge_torch/csrc/group_by_row.cu) from source
+   with nvcc, in parallel;
 3. each kernel against its plain PyTorch version on the card, at the
    paths' shapes and at edge shapes, and timed beside its bound (the bytes
    it must move at 3.35 TB/s, or its fp32 operations at 67 TFLOP/s).
@@ -52,11 +54,18 @@ Phases, each fatal:
    shapes, checked and timed: rotate_probe's RotatE E (T = 14,744,
    R = 40,943, D = 36) and R (T = 3,276, R = 18, D = 20), and bench's
    k=4,096 rows (T = 18,592, R = 16,296, D = 152);
-   K1's deterministic variant (sorted ids, each row summed in order, no
-   atomics) at 7f's and 15b's shapes and the edge shapes: the same bits
-   in two calls, within 1e-5 of the plain version, timed at 7f's E and
-   15a's shape beside the plain version and `index_add_`, both under
-   deterministic algorithms too;
+   K1's deterministic variant (the ids grouped by row, a team of lanes a
+   row summing its occurrences in order, chunks of 128 for a longer row,
+   no atomics) at 7f's and 15b's shapes, full-rank TransR's M, a hot row
+   (half of T) and all of T on one row at RESCAL's E, and the edge shapes:
+   the same bits in two calls, the same bits as its plain version in its
+   order (`segment_sum_ordered_reference`), within 1e-5 of the plain
+   version on rows of <= 1,024 occurrences and within their fp32 summation
+   bound of the fp64 sum on longer rows (the hot row's and the one row's
+   only); timed at 7f's E, 15a's shape,
+   TransR's M and the hot row beside its grouping alone, `index_add_` and
+   `zeros` + `index_add_` under deterministic algorithms, and the atomic
+   K1;
    `segment_outer_sum` equal bit for bit to its in-order plain version and to itself in a second call, also at ranks 1, 3 and 4,
    d = 37, 12 and 1,100, and with half of the occurrences on one row at
    ranks 1, 3 and 4; timed at WN18's 18 relations, with half and with all
@@ -279,8 +288,9 @@ Phases, each fatal:
    entry points beside it, each run with the launch counts set to 0 just
    before it and held to their exact values after:
    15a `flagship.run` at JAX's 1M shape (the 10^6-entity lattice KG, 8 M
-      reciprocal triples, P=4, d=64, k=8,192, sampled CE with Adam, one
-      epoch of 16 x 400 steps, 200 queries ranked): every phase line in
+      reciprocal triples, P=4, d=64, k=8,192, sampled CE with Adam, the
+      first 2 of an epoch's 16 buckets of 400 steps (`--buckets 2`: depth
+      cut for the run's time), 200 queries ranked): every phase line in
       order, finite losses, the restored checkpoint equal bit for bit to
       the saved tables, 1 K1 a step on the 16-byte path (each epoch's count
       equal to its steps), the trainer at the shape phase 3 checked;
@@ -295,7 +305,7 @@ Phases, each fatal:
       params, by the 1e-5 gap rule;
    15d `python -m skge_torch.profile_step --epochs 1` (the main path's phase
       ablation at FB15k's shape): 1 K1 a step of its full phase;
-   15e `python -m skge_torch.ooc_ce_ab --epochs 2 --eval-every 1 --arms
+   15e `python -m skge_torch.ooc_ce_ab --epochs 1 --eval-every 1 --arms
       ce:1,sampled_ce:2` at WN18's shape: 1 K1 a sampled-CE step, none for
       full CE, a row per arm.
    Phase 3 checks and times K1 at the full 10^7 flagship's step
@@ -335,8 +345,9 @@ its last line {"ok": true, "device": {...}}.
 
 `--kernel-times` runs phases 1-2 and phase 3's timings alone, on the same
 inputs and without the checks, and prints no result line. Copied into an
-older tree of the repository and run there, it times that tree's kernels
-at this tree's shapes: parent against change on one card.
+older tree of the repository that has `skge_torch/ops/grouping.py` and run
+there, it times that tree's kernels at this tree's shapes: parent against
+change on one card.
 """
 
 from __future__ import annotations
@@ -381,7 +392,7 @@ from skge_torch.experiment import Experiment, make_parser
 from skge_torch.models import RotatE, conve
 from skge_torch.models.base import ACTIVATIONS
 from skge_torch.optim import EPS
-from skge_torch.ops import _build, cuda_outer, cuda_segment
+from skge_torch.ops import _build, cuda_outer, cuda_segment, grouping
 from skge_torch.outofcore import BucketPoolSampler, make_bucket_epoch
 from skge_torch.parallel import distributed as pdist
 from skge_torch.parallel import mesh as pmesh
@@ -440,17 +451,28 @@ KERNELS = {  # name: (wrapper module, source, the TPU kernel it replaces)
     "segment_outer_sum": (cuda_outer, "skge_torch/csrc/segment_outer_sum.cu",
                           "skge_tpu/ops/pallas_outer.py:128"),
 }
+# built beside the kernels: the grouping by row that K1's deterministic
+# variant and K2 run first (ops/grouping.py)
+SOURCES = (*KERNELS, "group_by_row")
 RTOL = ATOL = 1e-5  # segment_sum: fp32 sums in atomic order, as in tests/test_pallas.py
+# rows of more occurrences than this (only phase 3's two hot-row cases, of
+# 5,344 and 10,688) are held to the fp64 sum within their fp32 summation
+# bound instead of RTOL/ATOL: two fp32 orders of 5,344 terms parted by
+# 1.1e-4 on the card. Every other row of every case stays within 1e-5.
+LONG_ROW = 1024
 # the least time of a call: its bytes at the HBM rate, or its fp32
 # operations at the rate outside the tensor cores (H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 VECTOR = "segment_sum 16-byte path"  # the launch count of K1's float4 path
 # phase 3: K1's deterministic variant checked at these cases (7f's E and W
-# counts, 15a's and 15b's step, the edge shapes) and timed at the first two
-DETERMINISTIC = ("RESCAL's E", "flagship 1M", "RESCAL's W counts, D=1",
+# counts, 15a's and 15b's step, full-rank TransR's M, a hot row and all of
+# T on one row at RESCAL's E, the edge shapes) and timed at DET_TIMED
+DETERMINISTIC = ("RESCAL's E", "flagship 1M", "RESCAL's W counts, D=1", "TransR's M",
+                 "RESCAL's E, a hot row", "RESCAL's E, all on one row",
                  "ids<0 and >=R dropped", "D=151 scalar path", "misaligned view",
                  "ragged last block", "wide D=22500", "T=0")
+DET_TIMED = ("RESCAL's E", "flagship 1M", "TransR's M", "RESCAL's E, a hot row")
 # one step, card against CPU, params and p2. The step starts from warm
 # AdaGrad accumulators: from p2 = 0 an update is lr*g/max(|g|, 1e-6), which
 # turns an fp32 difference d in a gradient below 1e-6 into a param
@@ -600,17 +622,18 @@ QUALITY_IID = ["--sampler", "random-mode", "--negatives", "5"]
 # columns). FLAGSHIP_SHAPE: the full 10^7 run's (P=8, S and the batch of the
 # longest bucket over 400 steps, as it printed them on the card); phase 3
 # checks and times K1 there. 15a runs JAX's 1M shape, at which phase 3 checks
-# K1 too and 15a holds its trainer
+# K1 too and 15a holds its trainer; its depth is cut to the first 2 of the
+# epoch's 16 buckets (a whole epoch took 89-106 s on the H100)
 FLAGSHIP_SHAPE = SimpleNamespace(part_size=1_469_324, relations=128, batch=12_804,
                                  k=8192, dim=64)
 FLAGSHIP_1M = ["--entities", "1000000", "--ntrain", "4000000", "--parts", "4",
-               "--epochs", "1", "--eval-n", "200"]
+               "--epochs", "1", "--buckets", "2", "--eval-n", "200"]
 FLAGSHIP_1M_SHAPE = SimpleNamespace(part_size=252_500, relations=128, batch=2_759,
                                     k=8192, dim=64)
 # 15d, 15e: the profiler at its defaults (the main path) for one epoch; the
-# A/B's first and a sampled-CE arm for two epochs at WN18's shape
+# A/B's first and a sampled-CE arm for one epoch each at WN18's shape
 PROFILE_STEP = ["--epochs", "1"]
-OOC_CE_AB = ["--epochs", "2", "--eval-every", "1", "--arms", "ce:1,sampled_ce:2"]
+OOC_CE_AB = ["--epochs", "1", "--eval-every", "1", "--arms", "ce:1,sampled_ce:2"]
 # tests/test_quality_gates.py's geometry gates (selfadv, k 1,024, alpha 2,
 # AdaGrad 0.3, 100 epochs of 20 batches, ncomp 32) at their sizes
 GEOMETRY = SimpleNamespace(ncomp=32, k=1024, alpha=2.0, lr=0.3, epochs=100, nbatches=20,
@@ -705,15 +728,16 @@ def build() -> None:
         path, out = _build.build(name)
         return name, path, out, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        built = list(pool.map(one, KERNELS))
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        built = list(pool.map(one, SOURCES))
     for name, path, out, dt in built:
         log(f"[2] {name}: {'built' if out is not None else 'cached'} {path.name} "
             f"in {dt:.2f} s")
         for line in (out or "").splitlines():
             if "registers" in line or "spill" in line:
                 log("    ptxas:", line.strip())
-        KERNELS[name][0]._lib()  # loads, binds the C interface
+    for mod in (*(mod for mod, _, _ in KERNELS.values()), grouping):
+        mod._lib()  # loads, binds the C interface
 
 
 def call_ms(fn, inputs, n=50):
@@ -802,8 +826,10 @@ def timed_shape(what, times, nbytes, flops, library="index_add_") -> dict:
         shape["library_call"] = library
     if "library_zeros" in times:  # the library's whole function: zero fill included
         shape["library_zero_fill_ms"] = times["library_zeros"]
-    if "grouping" in times:  # K2's index preparation, part of "ms"
+    if "grouping" in times:  # the index preparation, part of "ms"
         shape["grouping_ms"] = times["grouping"]
+    if "atomic" in times:  # K1's atomic path on the same inputs
+        shape["atomic_ms"] = times["atomic"]
     log(f"[3] {what}: bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.2f} MB, "
         f"{flops / 1e6:.1f} MFLOP), kernel at {100 * shape['bound_share']:.1f}% of it")
     return shape
@@ -821,19 +847,47 @@ def _batch_size(cfg, n=None) -> int:
     return -(-(DATA.n_train if n is None else n) // cfg.nbatches)
 
 
+def held_to_reference(got, idx, grads, nrows, chunked) -> tuple[bool, float]:
+    """(ok, max abs error against `segment_sum_reference`): rows of at most
+    LONG_ROW occurrences within RTOL/ATOL of it; a longer row against the
+    fp64 sum within its fp32 summation error bound, (m - 1) * 2^-24 * sum |x|
+    for m - 1 adds in a row (n - 1 in any order; CHUNK + chunks - 2 in the
+    deterministic variant's chunked order, `chunked`): two fp32 orders of
+    thousands of terms part by more than 1e-5."""
+    want = cuda_segment.segment_sum_reference(idx, grads, nrows)
+    if not got.numel():
+        return True, 0.0
+    err = float((got - want).abs().max())
+    counts = torch.bincount(idx[(idx >= 0) & (idx < nrows)], minlength=nrows)
+    short = counts <= LONG_ROW
+    ok = bool(torch.allclose(got[short], want[short], rtol=RTOL, atol=ATOL))
+    long = torch.nonzero(~short).squeeze(1)
+    if len(long):
+        exact = cuda_segment.segment_sum_reference(idx, grads.double(), nrows)[long]
+        absum = cuda_segment.segment_sum_reference(idx, grads.double().abs(), nrows)[long]
+        n = counts[long]
+        adds = (cuda_segment.CHUNK + (n + cuda_segment.CHUNK - 1) // cuda_segment.CHUNK
+                if chunked else n + 1) - 2
+        gap = (got[long].double() - exact).abs()
+        ok = ok and bool((gap <= adds[:, None] * 2.0**-24 * absum).all())
+        log(f"[3]   {len(long)} rows of > {LONG_ROW} occurrences (up to "
+            f"{int(n.max())}): max |err| against the fp64 sum {float(gap.max()):.3e}, "
+            f"within {float((gap / (adds[:, None] * 2.0**-24 * absum)).max()):.4f} of "
+            "the bound")
+    return ok, err
+
+
 def check_segment_sum(name, idx, grads, nrows, vector) -> float:
     """One case: `segment_sum` against `segment_sum_reference` on the same
     card inputs, on the path it must take; returns the max abs error."""
     t, d = grads.shape
     before = cuda_segment.vector_launches
     got = cuda_segment.segment_sum(idx, grads, nrows)
-    want = cuda_segment.segment_sum_reference(idx, grads, nrows)
     torch.cuda.synchronize()
     check(got.shape == (nrows, d), f"segment_sum shape for {name}")
     check(cuda_segment.vector_launches - before == int(vector and t > 0),
           f"segment_sum took the {'16-byte' if vector else 'scalar'} path ({name})")
-    err = float((got - want).abs().max()) if got.numel() else 0.0
-    ok = bool(torch.allclose(got, want, rtol=RTOL, atol=ATOL))
+    ok, err = held_to_reference(got, idx, grads, nrows, chunked=False)
     log(f"[3] segment_sum {name:24s} T={t:6d} R={nrows:6d} D={d:6d} "
         f"{'16-byte' if vector else 'scalar '}  max|err|={err:.3e}  "
         f"{'ok' if ok else 'MISMATCH'}")
@@ -843,31 +897,45 @@ def check_segment_sum(name, idx, grads, nrows, vector) -> float:
 
 def check_deterministic(name, idx, grads, nrows, vector) -> float:
     """One case of K1's deterministic variant: two calls equal bit for bit,
-    within RTOL/ATOL of `segment_sum_reference` on the same card inputs, on
-    the path it must take; returns the max abs error."""
+    both bit-equal to `segment_sum_ordered_reference` (its order, op for
+    op) and `held_to_reference` on the same card inputs, on the path it
+    must take, with its grouping launch and its combine launch where
+    T > CHUNK; returns the max abs error."""
     t, d = grads.shape
-    before = cuda_segment.vector_launches, cuda_segment.deterministic_launches
+    counters = lambda: (cuda_segment.vector_launches, cuda_segment.deterministic_launches,
+                        cuda_segment.combine_launches, grouping.launches)
+    before = counters()
     with deterministic():
         got = [cuda_segment.segment_sum(idx, grads, nrows) for _ in range(2)]
-    want = cuda_segment.segment_sum_reference(idx, grads, nrows)
+    ordered = cuda_segment.segment_sum_ordered_reference(idx, grads, nrows)
     torch.cuda.synchronize()
     n = 2 * int(t > 0)
-    check((cuda_segment.vector_launches - before[0],
-           cuda_segment.deterministic_launches - before[1]) == (n * vector, n),
+    want = (n * vector, n, n * (t > cuda_segment.CHUNK), n)
+    check(tuple(a - b for a, b in zip(counters(), before)) == want,
           f"segment_sum took its deterministic variant, "
-          f"{'16-byte' if vector else 'scalar'} path ({name})")
+          f"{'16-byte' if vector else 'scalar'} path, grouping and combine launches "
+          f"{want} ({name})")
     same = bool(torch.equal(got[0], got[1]))
-    sequential = bool(torch.equal(got[0].cpu(), cuda_segment.segment_sum_reference(
-        idx.cpu(), grads.cpu(), nrows)))
-    err = float((got[0] - want).abs().max()) if got[0].numel() else 0.0
-    ok = bool(torch.allclose(got[0], want, rtol=RTOL, atol=ATOL))
+    exact = bool(torch.equal(got[0], ordered))
+    ok, err = held_to_reference(got[0], idx, grads, nrows, chunked=True)
     log(f"[3] segment_sum deterministic {name:24s} T={t:6d} R={nrows:6d} D={d:6d} "
         f"{'16-byte' if vector else 'scalar '}  max|err|={err:.3e}  two calls "
-        f"{'bit-equal' if same else 'DIFFER'}; the CPU's in-order sum "
-        f"{'bit-equal' if sequential else 'not bit-equal'}  {'ok' if ok else 'MISMATCH'}")
+        f"{'bit-equal' if same else 'DIFFER'}; the plain version in its order "
+        f"{'bit-equal' if exact else 'DIFFERS'}  {'ok' if ok else 'MISMATCH'}")
     check(same, f"segment_sum's deterministic variant repeats bit for bit ({name})")
+    check(exact, f"segment_sum's deterministic variant bit-equal to its plain version "
+          f"in its order ({name})")
     check(ok, f"segment_sum's deterministic variant against its plain version ({name})")
     return err
+
+
+def _atomic(i, g, n):
+    """K1's atomic path, inside a block of deterministic algorithms."""
+    torch.use_deterministic_algorithms(False)
+    try:
+        return cuda_segment.segment_sum(i, g, n)
+    finally:
+        torch.use_deterministic_algorithms(True, warn_only=True)
 
 
 # the 16-byte path's timed shapes, each beside the plain version
@@ -948,6 +1016,8 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
         ("partitioned TransE", t_part, rows, width, 0, rows, 0, True),
         ("partitioned full CE", 3 * b_part, rows, width, 0, rows, 0, True),
         ("RESCAL's E", t_rescal_e, e, rescal_w, 0, e, 0, True),
+        ("RESCAL's E, a hot row", t_rescal_e, e, rescal_w, 0, e, 0, True),  # half of T
+        ("RESCAL's E, all on one row", t_rescal_e, e, rescal_w, 0, 1, 0, True),
         ("mesh iid pointwise", t_mesh_pw, rows, width, 0, rows, 0, True),
         ("compat RESCAL's W", t_compat_w, r, compat_w, 0, r, 0, True),
         ("compat RESCAL's W counts", t_compat_w, r, 1, 0, r, 0, False),
@@ -979,33 +1049,44 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
     timed = {}
     for name, t, nrows, d, lo, hi, shift, vector in cases:
         idx = torch.randint(lo, hi, (t,), generator=gen, device=dev)
+        if name.endswith("a hot row"):
+            idx[torch.randperm(t, generator=gen, device=dev)[: t // 2]] = 0
         grads = torch.randn(t * d + shift, generator=gen, device=dev)[shift:].view(t, d)
         if verify:
             worst = max(worst, check_segment_sum(name, idx, grads, nrows, vector))
             if name in DETERMINISTIC:
                 worst = max(worst, check_deterministic(name, idx, grads, nrows, vector))
-        if name in DETERMINISTIC[:2]:
+        if name in DET_TIMED:
             timed[name, "deterministic"] = (idx, grads, nrows)
         if name in (*VECTOR_TIMED, "D=151 scalar path", "RESCAL's W counts, D=1"):
             timed[name] = (idx, grads, nrows)
     shapes = []
     for key, (idx, grads, nrows) in timed.items():
-        # (name, "deterministic"): the variant, and the plain version and
-        # `index_add_` under deterministic algorithms too
+        # (name, "deterministic"): the variant, its plain version in its
+        # order, `index_add_` under deterministic algorithms too, the
+        # grouping alone and the atomic path
         name, variant = key if isinstance(key, tuple) else (key, "")
         t, d = grads.shape
         table = torch.zeros(nrows, d, device=dev)
         fns = {"kernel": cuda_segment.segment_sum}
         scalar = name not in VECTOR_TIMED
-        fns["plain"] = cuda_segment.segment_sum_reference
+        # on a hot row the ordered plain version's thousands of small ops
+        # make the profiler slow: not timed there
+        if not (variant and name.endswith("a hot row")):
+            fns["plain"] = (cuda_segment.segment_sum_ordered_reference if variant
+                            else cuda_segment.segment_sum_reference)
         fns["library"] = lambda i, g, _: table.index_add_(0, i, g)
         # K1's whole function: its output zeroed, then the sum
         fns["library_zeros"] = lambda i, g, n: torch.zeros(
             n, g.shape[1], device=g.device).index_add_(0, i, g)
+        if variant:
+            fns["grouping"] = lambda i, _g, n: grouping.group(i, n, torch.int32)
+            fns["atomic"] = _atomic
         what = f"{name}, {variant}" if variant else name
         with deterministic() if variant else contextlib.nullcontext():
             times = time_rounds(fns, (idx, grads, nrows),
-                                f"segment_sum at T={t}, R={nrows}, D={d} ({what})")
+                                f"segment_sum at T={t}, R={nrows}, D={d} ({what})",
+                                n_plain=3 if variant else None)
         shapes.append(timed_shape(
             f"T={t}, R={nrows}, D={d}" + (", scalar path" if scalar else "")
             + (f", {name}" if name.startswith(("out-of-core", "partitioned", "RESCAL",
@@ -1101,9 +1182,8 @@ def segment_outer_sum_checks(dev, verify=True) -> tuple[float, list]:
     shapes = []
     for name, (idx, us, vs, nrows) in timed.items():
         t, dd = us[0].shape
-        fns = {"kernel": cuda_outer.segment_outer_sum}
-        if hasattr(cuda_outer, "group_by_row"):  # an older tree's K2 takes no grouping
-            fns["grouping"] = lambda i, _u, _v, n: cuda_outer.group_by_row(i, n)
+        fns = {"kernel": cuda_outer.segment_outer_sum,
+               "grouping": lambda i, _u, _v, n: grouping.group_by_row(i, n)}
         if name in ("slice", "out-of-core", "quality suite, WN18"):
             fns["plain"] = cuda_outer.segment_outer_sum_reference
         fns["library"] = _outer_library  # no one call: the nearest composite
@@ -1435,9 +1515,13 @@ def _sync(dev) -> None:
 
 
 def reset_counts() -> None:
+    check(not torch.are_deterministic_algorithms_enabled(),
+          "deterministic algorithms are off between phases")
     for mod, _, _ in KERNELS.values():
         mod.launches = 0
     cuda_segment.vector_launches = 0
+    cuda_segment.deterministic_launches = cuda_segment.combine_launches = 0
+    grouping.launches = 0
 
 
 def read_counts() -> dict:
@@ -1617,7 +1701,6 @@ def surface(dev, launches) -> dict:
     whole = rescal_trainer(2, checkpoint_path=ck, checkpoint_every=1)
     whole.post_epoch.append(keep_epoch_1)
     reset_counts()
-    sorted_before = cuda_segment.deterministic_launches
     with deterministic():
         final = whole.fit(xs_e)
     state, meta = load_checkpoint(ck1, dev)
@@ -1631,9 +1714,11 @@ def surface(dev, launches) -> dict:
                 for k in final.params)
     log(f"[7f] resumed from the epoch-1 checkpoint against 2 epochs in one run: "
         f"max|d param| {worst:.3e}")
-    sorted_launches = cuda_segment.deterministic_launches - sorted_before
+    sorted_launches, grouped = cuda_segment.deterministic_launches, grouping.launches
     if dev.type == "cuda":
         check(sorted_launches == 60, f"7f: {sorted_launches} of 60 K1 launches sorted")
+        # every K1 and K2 call groups its ids by row in the grouping kernel
+        check(grouped == 60 + 30, f"7f: {grouped} grouping launches, want 90")
     check(worst <= STEP_TOL, f"7f: resumed params within {STEP_TOL}")
     counts = read_counts()
     log(f"[7f] kernel launches {counts} for 30 steps")
@@ -3721,7 +3806,6 @@ def flagship_host_buckets(args, dev, launches) -> None:
         return run
 
     reset_counts()
-    sorted_before = cuda_segment.deterministic_launches
     losses = []
     with deterministic():
         for tr in trs:
@@ -3729,7 +3813,7 @@ def flagship_host_buckets(args, dev, launches) -> None:
             losses.append(float(tr._bucket_epoch(pi, pj, perm=perm)[0]))
             tr.flush()
     counts = read_counts()
-    sorted_launches = cuda_segment.deterministic_launches - sorted_before
+    sorted_launches = cuda_segment.deterministic_launches
     check(all(bool(torch.equal(a, b)) for a, b in zip(*seen)) and seen[0][0].dtype
           == torch.int64, "15b: the epoch's ids and mask bit-equal from either stack")
     if dev.type == "cuda":
@@ -3791,7 +3875,7 @@ def profile_step_phase(dev, launches) -> None:
 
 def ooc_ce_ab_phase(dev, launches) -> None:
     """15e: `python -m skge_torch.ooc_ce_ab`, full CE at P=1 and sampled CE
-    at P=2, two epochs each with a validation each."""
+    at P=2, one epoch each with a validation each."""
     argv = (["--cpu"] if dev.type == "cpu" else []) + OOC_CE_AB
     reset_counts()
     rows, _ = _run_logged("15e", ooc_ce_ab.main, argv)

@@ -92,6 +92,9 @@ def parse_args(argv=None):
                     help=">2 gives prefetch a free slot")
     ap.add_argument("--k", type=int, default=8192)
     ap.add_argument("--epochs", type=int, default=4)
+    ap.add_argument("--buckets", type=int, default=None,
+                    help="train only the first N buckets of each epoch's chained "
+                         "order (part of an epoch; default: every bucket)")
     ap.add_argument("--nbatches", type=int, default=400,
                     help="minibatches per bucket epoch")
     ap.add_argument("--eval-batch", type=int, default=512)
@@ -165,8 +168,9 @@ def padding_share(tr: OutOfCoreTrainer) -> float:
     return 1.0 - real / (len(tr.buckets) * tr.bucket_len)
 
 
-def steps_per_epoch(tr: OutOfCoreTrainer) -> int:
-    return len(tr.buckets) * max(1, min(tr.nbatches, tr.bucket_len))
+def steps_per_epoch(tr: OutOfCoreTrainer, buckets: Optional[int] = None) -> int:
+    """The steps of an epoch of the first `buckets` buckets (default all)."""
+    return len(tr._bucket_order()[:buckets]) * max(1, min(tr.nbatches, tr.bucket_len))
 
 
 def state_digest(tr: OutOfCoreTrainer) -> str:
@@ -264,7 +268,7 @@ def run(args, device: Optional[torch.device] = None):
         before = (tr.uploads, tr.bytes_uploaded, tr.bytes_downloaded,
                   cuda_segment.launches)
         te = time.perf_counter()
-        tr.fit(epochs=1)
+        tr.fit(epochs=1, buckets=args.buckets)
         _sync(device)
         m = tr.metrics[-1]
         line = {"phase": "train", "epoch": e, "loss": round(m["loss"], 2),
@@ -272,17 +276,19 @@ def run(args, device: Optional[torch.device] = None):
                 "epoch_uploads": tr.uploads - before[0],
                 "gb_uploaded": round((tr.bytes_uploaded - before[1]) / 1e9, 3),
                 "gb_downloaded": round((tr.bytes_downloaded - before[2]) / 1e9, 3),
-                "steps": steps_per_epoch(tr),
+                "steps": steps_per_epoch(tr, args.buckets),
                 "k1_launches": cuda_segment.launches - before[3]}
         epochs.append(line)
         print(json.dumps(line), flush=True)
     train_s = time.perf_counter() - t0
     report["train_s"] = round(train_s, 1)
-    # work units: (k+1) candidate scorings per positive per direction
-    report["scored_per_s"] = round(args.epochs * len(aug.train) * (args.k + 1) / train_s)
+    # work units: (k+1) candidate scorings per positive per direction, over
+    # the positives of the buckets trained
+    trained = sum(len(tr.buckets[b]) for b in tr._bucket_order()[:args.buckets])
+    report["scored_per_s"] = round(args.epochs * trained * (args.k + 1) / train_s)
     report["losses"] = [line["loss"] for line in epochs]
     report["k1_launches"] = [line["k1_launches"] for line in epochs]
-    report["steps_per_epoch"] = steps_per_epoch(tr)
+    report["steps_per_epoch"] = steps_per_epoch(tr, args.buckets)
     if device.type == "cuda":
         report["peak_device_gb"] = round(torch.cuda.max_memory_allocated(device) / 1e9, 3)
 

@@ -3,7 +3,7 @@
 ComplEx, SimplE, TuckER, QuatE), the translational relatives (RotatE,
 TransH, TransR, PairRE) and ConvE."""
 
-from skge_torch.models.base import KGEModel, mxu_dot, nunif, normal
+from skge_torch.models.base import KGEModel, activation, mxu_dot, nunif, normal
 from skge_torch.models.complexe import ComplEx
 from skge_torch.models.conve import ConvE
 from skge_torch.models.distmult import DistMult
@@ -27,4 +27,4 @@ MODELS = {
 
 __all__ = ["ComplEx", "ConvE", "DistMult", "ERMLP", "HolE", "KGEModel", "MODELS",
            "PairRE", "QuatE", "RESCAL", "RotatE", "SimplE", "TransE", "TransH",
-           "TransR", "TuckER", "mxu_dot", "nunif", "normal"]
+           "TransR", "TuckER", "activation", "mxu_dot", "nunif", "normal"]

@@ -46,6 +46,10 @@ ACTIVATIONS: Mapping[str, Tuple[Callable, Callable]] = {
 }
 
 
+def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    return ACTIVATIONS[name][0]
+
+
 def acc_dtype(x: torch.Tensor) -> torch.dtype:
     """Matmul accumulation dtype: at least float32, never below the input's."""
     return torch.promote_types(x.dtype, torch.float32)

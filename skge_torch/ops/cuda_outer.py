@@ -10,8 +10,9 @@ adds them, so the result is deterministic. It is the port of
 `segment_outer_sum_pallas` (skge_tpu/ops/pallas_outer.py); the kernel is
 `csrc/segment_outer_sum.cu`.
 
-- `group_by_row` orders the occurrences by row (a stable sort); the kernel
-  and the plain version both walk that order.
+- `group_by_row` (ops/grouping.py) orders the occurrences by row (a stable
+  sort: on the card, the hand-written kernel `csrc/group_by_row.cu`); the
+  kernel and the plain version both walk that order.
 - A CUDA tensor goes to the kernel, fp32 only, or the call raises.
 - A CPU tensor goes to `segment_outer_sum_reference`, the plain PyTorch
   version of the same function in the same order (fp32 or fp64), which the
@@ -25,35 +26,16 @@ went through the kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Sequence
 
 import torch
 
 from skge_torch.ops import _build
+from skge_torch.ops.grouping import group_by_row, group_by_row_reference, unfilled
 
 launches = 0
 
 MAX_RANK = 4  # the kernel's Factors struct
-
-
-def group_by_row(
-    indices: torch.Tensor, num_rows: int
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Group the occurrences by row id: `(perm, offsets)`.
-
-    `perm` (T,) is a stable ascending order of the ids, and `offsets`
-    (num_rows + 1,) int64 the start of each row's run in it:
-    `perm[offsets[r]:offsets[r + 1]]` are the positions of id r, in order.
-    Ids < 0 sort before `offsets[0]` and ids >= num_rows after
-    `offsets[num_rows]`, so the runs leave them out. The ids are clamped to
-    [-1, num_rows] and sorted in the narrowest integer type that holds
-    them: the radix sort takes one pass per byte of the key.
-    """
-    key = next(t for t in (torch.int8, torch.int16, torch.int32)
-               if num_rows <= torch.iinfo(t).max)
-    sorted_keys, perm = torch.sort(indices.clamp(-1, num_rows).to(key), stable=True)
-    rows = torch.arange(num_rows + 1, dtype=key, device=indices.device)
-    return perm, torch.searchsorted(sorted_keys, rows)
 
 
 def segment_outer_sum_reference(
@@ -67,7 +49,7 @@ def segment_outer_sum_reference(
     and each sum a separate op."""
     d = us[0].shape[1]
     out = us[0].new_zeros((num_rows, d, d))
-    perm, offsets = group_by_row(indices, num_rows)
+    perm, offsets = group_by_row_reference(indices, num_rows)
     starts, counts = offsets[:-1], offsets[1:] - offsets[:-1]
     for k in range(int(counts.max()) if num_rows else 0):
         rows = torch.nonzero(counts > k).squeeze(1)
@@ -137,7 +119,10 @@ def segment_outer_sum(
     """Sum `sum_f us[f][t] (x) vs[f][t]` into a (num_rows, d, d) table by
     `indices` (T,); `us` and `vs` hold the (T, d) factors, one pair per
     rank term. Each row sums its occurrences in their order in `indices`:
-    the kernel and the plain version agree bit for bit.
+    the kernel and the plain version agree bit for bit. On the card the
+    output, which the kernel writes whole, is allocated with PyTorch's NaN
+    fill of new tensors (under deterministic algorithms) suspended
+    (`grouping.unfilled`, a process-wide flag).
     """
     global launches
     us, vs = tuple(us), tuple(vs)
@@ -163,7 +148,8 @@ def segment_outer_sum(
     ptrs = ctypes.c_void_p * rank
     with torch.cuda.device(device):
         perm, offsets = group_by_row(indices, num_rows)
-        out = torch.empty((num_rows, d, d), dtype=dtype, device=device)
+        with unfilled():  # every cell is written by the kernel
+            out = torch.empty((num_rows, d, d), dtype=dtype, device=device)
         err = lib.skge_segment_outer_sum_f32(
             perm.data_ptr(), offsets.data_ptr(),
             ptrs(*(u.data_ptr() for u in us)),

@@ -442,10 +442,12 @@ class OutOfCoreTrainer:
             order.append(nxt)
         return order
 
-    def fit(self, epochs: int = 1, verbose: bool = False) -> "OutOfCoreTrainer":
+    def fit(self, epochs: int = 1, verbose: bool = False,
+            buckets: Optional[int] = None) -> "OutOfCoreTrainer":
         """Run `epochs` passes; each visits every bucket once in the chained
-        order. The host syncs once per epoch, for the metrics record."""
-        order = self._bucket_order()
+        order, or only the first `buckets` of it (part of an epoch). The host
+        syncs once per epoch, for the metrics record."""
+        order = self._bucket_order()[:buckets]
         for ep in range(epochs):
             tot_loss = tot_viol = 0.0
             for b, (pi, pj) in enumerate(order):

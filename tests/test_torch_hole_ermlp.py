@@ -264,3 +264,13 @@ def test_static_metadata_and_init(name):
     if name == "ermlp":
         # C: the bound of an (nhidden, 1) table, as JAX's
         assert float(prm["C"].abs().max()) <= np.sqrt(6.0) / np.sqrt(NH + 1)
+
+
+@pytest.mark.parametrize("name", ["linear", "sigmoid", "tanh", "relu"])
+def test_activation_by_name_matches_jax(name):
+    from skge_tpu.models import activation as jactivation
+    from skge_torch.models import activation
+
+    x = np.linspace(-4.0, 4.0, 33)
+    got = activation(name)(t(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jactivation(name)(jnp.asarray(x))), **TOL)

@@ -138,6 +138,18 @@ def test_prefetch_cache_parts_and_host_buckets_keep_the_trajectory():
             assert got.uploads <= ref.uploads + 1
 
 
+def test_fit_part_of_an_epoch_runs_its_first_buckets():
+    ds = synthetic_kg(90, 5, 900, seed=8, clustered=True)
+    part = _ooc(ds).fit(epochs=1, buckets=2)
+    ref = _ooc(ds)
+    for pi, pj in ref._bucket_order()[:2]:
+        ref._bucket_epoch(pi, pj)
+    ref.flush()
+    assert part.step == ref.step == 2 * 6 and len(part.metrics) == 1
+    for name, v in ref.params().items():
+        np.testing.assert_array_equal(part.params()[name], v, err_msg=name)
+
+
 def test_save_restore_resumes_exactly(tmp_path):
     ds = synthetic_kg(90, 5, 900, seed=8, clustered=True)
     full = _ooc(ds, cache_parts=2).fit(epochs=4)
