@@ -54,16 +54,21 @@ Phases, each fatal:
    shapes, checked and timed: rotate_probe's RotatE E (T = 14,744,
    R = 40,943, D = 36) and R (T = 3,276, R = 18, D = 20), and bench's
    k=4,096 rows (T = 18,592, R = 16,296, D = 152);
+   K1 at 12e's scaling_bench step (T = 22,528, R = 20,200, D = 68),
+   checked and timed;
    K1's deterministic variant (the ids grouped by row, a team of lanes a
    row summing its occurrences in order, chunks of 128 for a longer row,
    no atomics) at 7f's and 15b's shapes, full-rank TransR's M, a hot row
-   (half of T) and all of T on one row at RESCAL's E, and the edge shapes:
+   (half of T) and all of T on one row at RESCAL's E, 11g's partitioned
+   step, 14c's five (RESCAL's E and W, TransE, RotatE's E and R), and the
+   edge shapes:
    the same bits in two calls, the same bits as its plain version in its
    order (`segment_sum_ordered_reference`), within 1e-5 of the plain
    version on rows of <= 1,024 occurrences and within their fp32 summation
    bound of the fp64 sum on longer rows (the hot row's and the one row's
    only); timed at 7f's E, 15a's shape,
-   TransR's M and the hot row beside its grouping alone, `index_add_` and
+   TransR's M, the hot row, 11g's shape and 14c's RESCAL W and TransE
+   beside its grouping alone, `index_add_` and
    `zeros` + `index_add_` under deterministic algorithms, and the atomic
    K1;
    `segment_outer_sum` equal bit for bit to its in-order plain version and to itself in a second call, also at ranks 1, 3 and 4,
@@ -213,7 +218,20 @@ Phases, each fatal:
       `FilteredRankingEval` on `params()`, by the 1e-5 gap rule;
    11f `python -m skge_torch.experiment --trainer partitioned` in this
       process with no launch variables (a world of one), 2 epochs of 10
-      steps, validations and the test ranking, 1 K1 a step.
+      steps, validations and the test ranking, 1 K1 a step;
+   11g (before 11f, while the NCCL group stands) the two constants of
+      `exchange='auto'` that one card can measure, each logged with the
+      card's name and power limit: the fp32 (TF32 off) `torch.mm` rate at
+      the partitioned step's pool dots ((4,832 x 150) @ (150 x 1,024),
+      CUDA events, the median of 4 rounds and their spread) and the ragged
+      exchange's fixed cost a step (11a's ragged trainer's median step less
+      its dense trainer's, 4 epochs each in turns, with the spread); then
+      `PartitionedTrainer(exchange='auto', exchange_costs=...)` at link
+      rates of 1e9 to 1e13 B/s, given as inputs (one card cannot measure
+      the link between cards): each chooses dense (at P=1 the byte terms
+      are equal and ragged adds its latency), and its epoch under
+      deterministic algorithms equals a dense trainer's bit for bit, 1
+      deterministic K1 a step.
 12. the 2-D ('data', 'model') mesh at (1, 1), in this process over NCCL
    groups of one (`parallel.mesh.make_mesh`, a file store under
    build/chip_smoke/, destroyed at the end), FB15k's shape, ncomp 150,
@@ -240,7 +258,15 @@ Phases, each fatal:
       1,024 queries at `scripts/serving_bench.py`'s defaults, exact and
       int8: the same top-10 ids and values; `FilteredRankingEval(mesh=)`
       against the unsharded ranking of 1,000 test triples by the 1e-5 gap
-      rule.
+      rule;
+   12e `python -m skge_torch.scaling_bench` at its defaults (TransE ncomp
+      64, 20,000 entities, a batch of 2,048 a device, 4 random-mode
+      negatives a mode, 20 steps): its N=1 worker in this process on the
+      (1, 1) mesh, 1 K1 a step on the 16-byte path (its untimed step
+      included); then the tool as a user runs it, a subprocess whose world
+      of one runs on the card over NCCL: one record, the JAX script's keys,
+      efficiency 1.0, exit code 0, its step ms and scored triples/s logged.
+      One card measures no scaling.
 13. the reference class API (`skge_torch.compat`) and `compute_dtype`,
    each path with the launch counts set to 0 just before it and held to
    their exact values after, aggregate "dense_pallas":
@@ -278,7 +304,10 @@ Phases, each fatal:
       filtered MRR at least 5x random;
    14c tests/test_quality_gates.py's three 2,000-entity geometry gates at
       their sizes and thresholds (selfadv, 100 epochs of 20 batches):
-      RESCAL and TransE on the bilinear KG, RotatE on the rotational KG;
+      RESCAL and TransE on the bilinear KG, RotatE on the rotational KG,
+      each trained under `torch.use_deterministic_algorithms(True)` (K1's
+      deterministic variant: a run's MRRs and state digests repeat bit for
+      bit), its launches, groupings and combines exact;
    14d the suite's iid RESCAL (random-mode, 5 negatives a mode): one
       epoch, 3 K1 a step, then one step from the initial params with
       those accumulators (held at >= 1e-6) on the card against the CPU,
@@ -371,8 +400,8 @@ import numpy as np
 import torch
 
 from skge_torch import (bench, compat, density_curve, flagship, ooc_ce_ab, profile_step,
-                        quality_suite, rotate_probe, run_rescal, serving_bench, verify_ce,
-                        verify_n3, verify_selfadv)
+                        quality_suite, rotate_probe, run_rescal, scaling_bench,
+                        serving_bench, verify_ce, verify_n3, verify_selfadv)
 from skge_torch import sample as host_sample
 from skge_torch import (ERMLP, MODELS, RESCAL, AdaGrad, Adam, BernoulliSampler,
                         CorruptedSampler, DistMult, FilteredRankingEval, HolE,
@@ -471,8 +500,11 @@ VECTOR = "segment_sum 16-byte path"  # the launch count of K1's float4 path
 DETERMINISTIC = ("RESCAL's E", "flagship 1M", "RESCAL's W counts, D=1", "TransR's M",
                  "RESCAL's E, a hot row", "RESCAL's E, all on one row",
                  "ids<0 and >=R dropped", "D=151 scalar path", "misaligned view",
-                 "ragged last block", "wide D=22500", "T=0")
-DET_TIMED = ("RESCAL's E", "flagship 1M", "TransR's M", "RESCAL's E, a hot row")
+                 "ragged last block", "wide D=22500", "T=0", "partitioned TransE",
+                 "14c RESCAL's E", "14c RESCAL's W", "14c TransE", "14c RotatE's E",
+                 "14c RotatE's R")
+DET_TIMED = ("RESCAL's E", "flagship 1M", "TransR's M", "RESCAL's E, a hot row",
+             "partitioned TransE", "14c RESCAL's W", "14c TransE")
 # one step, card against CPU, params and p2. The step starts from warm
 # AdaGrad accumulators: from p2 = 0 an update is lr*g/max(|g|, 1e-6), which
 # turns an fp32 difference d in a gradient below 1e-6 into a param
@@ -569,6 +601,10 @@ PART_SMALL = 9_664     # 11c: 2 steps of 4,832 an epoch (4 on reciprocal relatio
 # every object is local and the cap is its floor of 1
 PART_SHAPE = SimpleNamespace(batch=4_832, cap=1)
 PART_STORE = f"{OUT}/process_group_store"
+# 11g: rounds of the two constants one card can measure (`calls` mm calls a
+# round), and the link rates between cards `exchange='auto'` is given: inputs
+# spanning 1 GB/s to 10 TB/s, not measurements
+AUTO = SimpleNamespace(rounds=4, calls=50, link_rates=(1e9, 1e10, 1e11, 1e12, 1e13))
 PART_CLI = ["--synthetic-entities", "14951", "--synthetic-relations", "1345",
             "--synthetic-train", "48314", "--model", "transe", "--sampler", "shared",
             "--k", "1024", "--margin", "1.0", "--ncomp", "150", "--me", "2", "--nb",
@@ -940,6 +976,7 @@ def _atomic(i, g, n):
 
 # the 16-byte path's timed shapes, each beside the plain version
 VECTOR_TIMED = ("slice", "iid", "selfadv", "ComplEx, SimplE", "QuatE", "TransR's M",
+                "scaling_bench",
                 "out-of-core TransE", "out-of-core RESCAL's E", "partitioned TransE",
                 "partitioned full CE", "RESCAL's E", "mesh iid pointwise",
                 "compat RESCAL's W", "quality suite TransE k=8192, WN18",
@@ -1002,6 +1039,16 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
     # channel; bench's k=4,096 rows (TransE-L2, HolE) into E and R
     probe = rotate_probe.parse_args([])
     b_probe = -(-probe.ntrain // probe.nbatches)
+    # 12e: scaling_bench's step at its defaults, N=1 (s, o, r and the 2 x
+    # negatives corruptions of each positive, into E and R); 14c's selfadv
+    # steps on the 2,000-entity KGs (s, o and the pool into E; RESCAL's W
+    # d^2 wide; TransE's E and R in one call; RotatE's 2 x d-wide E, d-wide R)
+    sb = scaling_bench.parse_args([])
+    t_scaling = (3 + 2 * sb.negatives) * sb.per_device_batch
+    geo = GEOMETRY_KG["bilinear"]
+    b_geo, e_geo, r_geo = (geo["n_train"] // GEOMETRY.nbatches, geo["n_entities"],
+                           geo["n_relations"])
+    t_geo_e, w_geo = 2 * b_geo + GEOMETRY.k, padded(GEOMETRY.ncomp)
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = [  # name, T, R, D, low id, high id, storage offset, 16-byte path
         ("slice", t_slice, rows, width, 0, rows, 0, True),
@@ -1036,6 +1083,13 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
         ("rotate_probe R, WN18", b_probe, probe.relations, padded(probe.ncomp), 0,
          probe.relations, 0, True),
         ("bench k=4096", 3 * _batch_size(TRANSE) + 4096, rows, width, 0, rows, 0, True),
+        ("scaling_bench", t_scaling, sb.entities + sb.relations, padded(sb.ncomp), 0,
+         sb.entities + sb.relations, 0, True),
+        ("14c RESCAL's E", t_geo_e, e_geo, w_geo, 0, e_geo, 0, True),
+        ("14c RESCAL's W", b_geo, r_geo, padded(GEOMETRY.ncomp ** 2), 0, r_geo, 0, True),
+        ("14c TransE", t_geo_e + b_geo, e_geo + r_geo, w_geo, 0, e_geo + r_geo, 0, True),
+        ("14c RotatE's E", t_geo_e, e_geo, padded(2 * GEOMETRY.ncomp), 0, e_geo, 0, True),
+        ("14c RotatE's R", b_geo, r_geo, w_geo, 0, r_geo, 0, True),
         ("ids<0 and >=R dropped", t_slice, rows, width, -50, rows + 50, 0, True),
         ("D=151 scalar path", t_slice, rows, width - 1, 0, rows, 0, False),
         ("misaligned view", t_slice, rows, width, 0, rows, 1, False),
@@ -1057,11 +1111,11 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
             if name in DETERMINISTIC:
                 worst = max(worst, check_deterministic(name, idx, grads, nrows, vector))
         if name in DET_TIMED:
-            timed[name, "deterministic"] = (idx, grads, nrows)
+            timed[name, "deterministic"] = (idx, grads, nrows, vector)
         if name in (*VECTOR_TIMED, "D=151 scalar path", "RESCAL's W counts, D=1"):
-            timed[name] = (idx, grads, nrows)
+            timed[name] = (idx, grads, nrows, vector)
     shapes = []
-    for key, (idx, grads, nrows) in timed.items():
+    for key, (idx, grads, nrows, vector) in timed.items():
         # (name, "deterministic"): the variant, its plain version in its
         # order, `index_add_` under deterministic algorithms too, the
         # grouping alone and the atomic path
@@ -1069,10 +1123,11 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
         t, d = grads.shape
         table = torch.zeros(nrows, d, device=dev)
         fns = {"kernel": cuda_segment.segment_sum}
-        scalar = name not in VECTOR_TIMED
-        # on a hot row the ordered plain version's thousands of small ops
-        # make the profiler slow: not timed there
-        if not (variant and name.endswith("a hot row")):
+        scalar = not vector
+        # where a row holds many occurrences (the hot row; 14c's W, ~67 a row)
+        # the ordered plain version's many small ops make the profiler slow:
+        # not timed there (its bits are checked above)
+        if not (variant and int(torch.bincount(idx).max()) > 32):
             fns["plain"] = (cuda_segment.segment_sum_ordered_reference if variant
                             else cuda_segment.segment_sum_reference)
         fns["library"] = lambda i, g, _: table.index_add_(0, i, g)
@@ -1091,7 +1146,8 @@ def segment_sum_checks(dev, verify=True) -> tuple[float, list]:
             f"T={t}, R={nrows}, D={d}" + (", scalar path" if scalar else "")
             + (f", {name}" if name.startswith(("out-of-core", "partitioned", "RESCAL",
                                                 "mesh", "compat", "quality", "flagship",
-                                                "rotate_probe", "bench"))
+                                                "rotate_probe", "bench", "scaling_bench",
+                                                "14c"))
                else "") + (f", {variant}" if variant else ""), times,
             nbytes=8 * t + 4 * t * d + 4 * nrows * d, flops=t * d))
     return worst, shapes
@@ -2691,7 +2747,7 @@ def partitioned_margin(graph, dev, group, launches):
     same seed: exact K1 launches, host waits a step, the card's busy time
     and idle share, the first step's violations equal and the params
     within OOC_TOL. Returns (the dense trainer, its initial state, its
-    triples)."""
+    triples, the ragged trainer)."""
     xs = graph.train[:PART_TRIPLES]
     runs = {}
     for exchange in ("dense", "ragged"):
@@ -2751,7 +2807,7 @@ def partitioned_margin(graph, dev, group, launches):
     params = dense[0].params()
     check(all(np.isfinite(v).all() for v in params.values()), "11a: params finite")
     check(float(np.linalg.norm(params["E"], axis=1).max()) <= 1 + 1e-5, "11a: normless1")
-    return dense[0], dense[1], xs
+    return dense[0], dense[1], xs, ragged[0]
 
 
 def _held_to_cpu(tag, card_state, cpu_state, nv=None):
@@ -2931,17 +2987,118 @@ def partitioned_cli(dev, launches) -> None:
         os.environ.update(saved)
 
 
-def partitioned(graph, dev, launches) -> None:
+def mm_rate(dev, smi) -> float:
+    """11g: the fp32 (TF32 off) `torch.mm` rate at the partitioned step's
+    pool dots, (batch x d) @ (d x k): the median over rounds of CUDA events
+    around back-to-back calls, with the spread."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn(PART_SHAPE.batch, PART.ncomp, device=dev, generator=gen)
+    b = torch.randn(PART.ncomp, PART.k, device=dev, generator=gen)
+    flops = 2.0 * PART_SHAPE.batch * PART.ncomp * PART.k
+    rates = []
+    for r in range(AUTO.rounds + 1):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(AUTO.calls):
+            torch.mm(a, b)
+        end.record()
+        torch.cuda.synchronize()
+        if r:  # the first round warms up
+            rates.append(flops * AUTO.calls / (start.elapsed_time(end) / 1e3))
+    rate = statistics.median(rates)
+    log(f"[11g] fp32 torch.mm ({PART_SHAPE.batch} x {PART.ncomp}) @ ({PART.ncomp} x "
+        f"{PART.k}), TF32 {torch.backends.cuda.matmul.allow_tf32}: median {rate:.6e} "
+        f"FLOP/s over {AUTO.rounds} rounds of {AUTO.calls} calls (spread {min(rates):.6e}-"
+        f"{max(rates):.6e}) on {smi}")
+    check(not torch.backends.cuda.matmul.allow_tf32 and rate > 0, "11g: an fp32 mm rate")
+    return rate
+
+
+def ragged_latency(dense, ragged, dev, smi) -> float:
+    """11g: the ragged exchange's fixed cost a step, the median of 11a's
+    ragged trainer's step less the median of its dense trainer's, over
+    epochs in turns (dense first, then ragged first), with the spread of
+    the rounds' differences."""
+    steps = {"dense": [], "ragged": []}
+    for r in range(AUTO.rounds):
+        for name in (("dense", "ragged") if r % 2 == 0 else ("ragged", "dense")):
+            tr = dense if name == "dense" else ragged
+            _sync(dev)
+            t0 = time.perf_counter()
+            tr._state, _ = tr._epoch(tr._state, tr._batches, tr._mask)
+            _sync(dev)
+            steps[name].append((time.perf_counter() - t0) / tr.nbatches)
+    lat = statistics.median(steps["ragged"]) - statistics.median(steps["dense"])
+    diffs = [r_ - d_ for r_, d_ in zip(steps["ragged"], steps["dense"])]
+    log(f"[11g] ragged exchange's cost a step: {1e3 * lat:.4f} ms (median ragged step "
+        f"{1e3 * statistics.median(steps['ragged']):.4f} ms less median dense step "
+        f"{1e3 * statistics.median(steps['dense']):.4f} ms, {AUTO.rounds} epochs of "
+        f"{dense.nbatches} steps each in turns; the rounds' differences "
+        f"{1e3 * min(diffs):.4f}-{1e3 * max(diffs):.4f} ms) on {smi}")
+    check(lat > 0, "11g: the ragged exchange costs more a step than the dense one")
+    return lat
+
+
+def partitioned_auto(graph, xs, dev, group, dense, ragged, smi, launches) -> None:
+    """11g: the two constants one card can measure (`mm_rate`,
+    `ragged_latency`), then `PartitionedTrainer(exchange='auto')` at P=1
+    at each of AUTO.link_rates, given as inputs (one card cannot measure
+    the link between cards): at P=1 the dense and ragged byte terms are
+    equal and ragged adds its latency, so each chooses dense, and its
+    epoch under deterministic algorithms equals a dense trainer's bit for
+    bit, 1 K1 a step."""
+    rate, lat = mm_rate(dev, smi), ragged_latency(dense, ragged, dev, smi)
+
+    def trainer(**kw):
+        return _part_trainer(TransE(graph.n_entities, graph.n_relations, PART.ncomp),
+                             AdaGrad(lr=PART.lr), xs, group, **kw)
+
+    ref = trainer(exchange="dense")
+    with deterministic():
+        ref.fit(1)
+    for link in AUTO.link_rates:
+        costs = ppart.ExchangeCosts(link_bytes_per_s=link, fp32_flops_per_s=rate,
+                                    ragged_latency_s=lat)
+        tr = trainer(exchange="auto", exchange_costs=costs)
+        rep = tr.stats["exchange"]
+        reset_counts()
+        with deterministic():
+            tr.fit(1)
+        _sync(dev)
+        counts = read_counts()
+        det = (cuda_segment.deterministic_launches, grouping.launches)
+        steps = tr.nbatches
+        same = all(torch.equal(tr._state.params[k], ref._state.params[k])
+                   and all(torch.equal(v, ref._state.opt_state[k][sn])
+                           for sn, v in tr._state.opt_state[k].items())
+                   for k in ref._state.params)
+        log(f"[11g] exchange='auto' at a link rate of {link:.0e} B/s (an input, not a "
+            f"measurement): {json.dumps(rep)}; one epoch of {steps} steps under "
+            f"deterministic algorithms equal to the dense trainer's bit for bit: {same}; "
+            f"launches {counts}, deterministic K1 {det[0]}, groupings {det[1]}")
+        for name in launches:
+            launches[name] += counts[name]
+        check(rep["choice"] == "dense" and tr.exchange == "dense"
+              and rep["dense_bytes"] == rep["ragged_bytes"],
+              f"11g: 'auto' at P=1 chooses dense at {link:.0e} B/s")
+        check(same, f"11g: 'auto' at {link:.0e} B/s trains as the dense trainer")
+        if dev.type == "cuda":
+            check(counts == _launches(steps, 0, steps) and det == (steps, steps),
+                  f"11g: launches {counts}, {det}, want 1 deterministic K1 a step")
+
+
+def partitioned(graph, dev, launches, smi) -> None:
     """Phase 11, the partitioned trainer at P=1; the process group is
     destroyed at the end whatever happens."""
     try:
         group = _part_group(dev)
         cpu_group = _cpu_group()
-        tr, state0, xs = partitioned_margin(graph, dev, group, launches)
+        tr, state0, xs, ragged = partitioned_margin(graph, dev, group, launches)
         partitioned_against_cpu(tr, state0, dev, group, cpu_group)
         partitioned_losses(graph, dev, group, cpu_group, launches)
         partitioned_resume(tr, xs, dev, group, launches)
         partitioned_ranking(graph, tr, dev)
+        partitioned_auto(graph, xs, dev, group, tr, ragged, smi, launches)
     finally:
         pdist.destroy()
     partitioned_cli(dev, launches)
@@ -3251,6 +3408,47 @@ def mesh_serving(graph, tr, dev, mesh) -> None:
     ranks_agree("12d", got, want, _min_gaps(model, params, graph.test, dev))
 
 
+def scaling_worker(dev, mesh, launches) -> None:
+    """12e, in this process: `python -m skge_torch.scaling_bench`'s N=1
+    worker at its defaults on phase 12's (1, 1) mesh, its untimed step and
+    `--steps` timed ones each 1 K1 on the 16-byte path."""
+    args = scaling_bench.parse_args(_cpu_flag(dev))
+    reset_counts()
+    dt = scaling_bench.step_seconds(args, 1, mesh)
+    _sync(dev)
+    steps = 1 + args.steps
+    _counted("12e", f"scaling_bench's N=1 worker in this process, {steps} steps "
+             f"({1e3 * dt:.3f} ms a timed step)", _launches(steps, 0, steps), dev, launches)
+
+
+def scaling_cli(dev) -> None:
+    """12e: `python -m skge_torch.scaling_bench` at its defaults as a user
+    runs it: a world of one process on the card (N=1), its records' keys
+    and exit code 0."""
+    t0 = time.perf_counter()
+    argv = ["--cpu", "--devices", "1"] if dev.type == "cpu" else []  # N=1 either way
+    proc = subprocess.run([sys.executable, "-m", "skge_torch.scaling_bench", *argv],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    for line in proc.stdout.splitlines():
+        log(f"[12e] {line}")
+    check(proc.returncode == 0, f"12e: scaling_bench exits 0 ({proc.returncode}): "
+          f"{proc.stderr[-3000:]}")
+    *records, summary = [json.loads(line) for line in proc.stdout.splitlines()]
+    metric = "efficiency" if dev.type == "cuda" else "spmd_overhead"
+    check([r["devices"] for r in records] == [1] and set(records[0]) == {
+        "devices", "total_batch", "step_ms", "scored_triples_per_s", metric},
+        "12e: one record, N=1, with the JAX script's keys")
+    check(set(summary) == {"metric", "impl", "backend", "target", "worst", "pass", "note"}
+          and summary["pass"], "12e: the summary's keys, passed")
+    if dev.type == "cuda":
+        check(records[0]["efficiency"] == 1.0 and summary["worst"] == 1.0
+              and summary["backend"] == "cuda", "12e: N=1 on the card, efficiency 1.0")
+    log(f"[12e] N=1: {records[0]['step_ms']} ms a step, "
+        f"{records[0]['scored_triples_per_s']} scored triples/s ({summary['backend']}); "
+        f"{time.perf_counter() - t0:.1f} s with the processes' start")
+
+
 def mesh_phase(graph, dev, launches) -> None:
     """Phase 12, the 2-D mesh at (1, 1); the process group is destroyed at
     the end whatever happens."""
@@ -3260,8 +3458,10 @@ def mesh_phase(graph, dev, launches) -> None:
         mesh_steps(graph, dev, m, _cpu_mesh(), launches)
         mesh_pad_to(graph, dev, launches)
         mesh_serving(graph, tr, dev, m)
+        scaling_worker(dev, m, launches)
     finally:
         pdist.destroy()
+    scaling_cli(dev)
 
 
 
@@ -3634,9 +3834,14 @@ def geometry_gates(dev, launches) -> None:
     their sizes and thresholds, KGs built on the card: RESCAL wins the
     bilinear KG (MRR > 0.08, H@10 > 0.15) and beats TransE there by 1.2x
     (TransE > 0.03); RotatE wins the rotational KG (MRR > 0.20, H@10 >
-    0.45). Each run's launches held to their exact counts: selfadv RESCAL
-    scatters W's d^2-wide rows through K1 (no K2), RotatE its E and its
-    phases in two K1 calls."""
+    0.45). Each run trains under deterministic algorithms, so K1 takes its
+    deterministic variant and a run gives the same bits every time (with
+    the atomic K1, TransE's MRR spread 0.0870-0.1026 between runs, across
+    the 1.2x cut); its trained state's digest is logged beside its MRR. Its
+    launches are held to their exact counts: selfadv RESCAL scatters W's
+    d^2-wide rows through K1 (no K2), RotatE its E and its phases in two K1
+    calls; each K1 call groups its ids once and, every call's T being over
+    128, combines its chunks once."""
     runs = (("RESCAL bilinear", "bilinear", "rescal", 0.5, {"rparam": 0.0},
              _launches(2, 0, 2)),
             ("TransE bilinear", "bilinear", "transe", 6.0, {}, _launches(1, 0, 1)),
@@ -3654,27 +3859,42 @@ def geometry_gates(dev, launches) -> None:
         reset_counts()
         _sync(dev)
         t0 = time.perf_counter()
-        for _ in range(GEOMETRY.epochs):
-            state, _ = epoch(state, xs)
-        _sync(dev)
+        with deterministic():
+            for _ in range(GEOMETRY.epochs):
+                state, _ = epoch(state, xs)
+            _sync(dev)
         dt = time.perf_counter() - t0
         counts = read_counts()
+        det = {"deterministic": cuda_segment.deterministic_launches,
+               "grouping": grouping.launches, "combine": cuda_segment.combine_launches}
         steps = GEOMETRY.epochs * GEOMETRY.nbatches
         want = {k: n * steps for k, n in per_step.items()}
-        check(dev.type != "cuda" or counts == want, f"14c {tag}: launches {counts}, want {want}")
+        k1 = want["segment_sum"]
+        check(dev.type != "cuda" or (counts, det) == (want, dict.fromkeys(det, k1)),
+              f"14c {tag}: launches {counts}, {det}, want {want} and {k1} of each")
         for k in launches:
             launches[k] += counts[k]
         assert_finite_state(state)
         res[tag] = r = FilteredRankingEval(model, ds.test, ds.all_triples(), batch_size=512)(
             state.params)
-        log(f"[14c] {tag}: filtered MRR {r.mrr:.4f}, H@10 {r.hits[10]:.4f} after "
-            f"{GEOMETRY.epochs} epochs of {GEOMETRY.nbatches} selfadv steps ({dt:.2f} s, "
-            f"{1e3 * dt / steps:.3f} ms a step), launches {counts}")
+        log(f"[14c] {tag}: filtered MRR {r.mrr:.4f} ({r.mrr!r}), H@10 {r.hits[10]:.4f} after "
+            f"{GEOMETRY.epochs} epochs of {GEOMETRY.nbatches} selfadv steps under "
+            f"deterministic algorithms ({dt:.2f} s, {1e3 * dt / steps:.3f} ms a step), "
+            f"state digest {state_digest(state)}, launches {counts}, {det}")
     rescal, trans, rot = (res[t] for t, *_ in runs)
     check(rescal.mrr > 0.08 and rescal.hits[10] > 0.15, "14c: RESCAL wins the bilinear KG")
     check(trans.mrr > 0.03, "14c: TransE learns the bilinear KG")
     check(rescal.mrr > 1.2 * trans.mrr, "14c: RESCAL beats TransE by 1.2x on the bilinear KG")
     check(rot.mrr > 0.20 and rot.hits[10] > 0.45, "14c: RotatE wins the rotational KG")
+
+
+def state_digest(state: TrainState) -> str:
+    """A hash of every parameter and optimizer slot of `state`, bit for
+    bit."""
+    return flagship.tables_digest(
+        [state.params[k] for k in sorted(state.params)]
+        + [state.opt_state[k][sn] for k in sorted(state.opt_state)
+           for sn in sorted(state.opt_state[k])])
 
 
 def quality_iid_step(dev, launches) -> None:
@@ -4140,7 +4360,7 @@ def main(argv) -> int:
     t_10g = time.perf_counter()
     outofcore_gates(dev, launches)
     t_10 = time.perf_counter()
-    partitioned(fb15k, dev, launches)
+    partitioned(fb15k, dev, launches, smi)
     t_11 = time.perf_counter()
     mesh_phase(fb15k, dev, launches)
     t_12 = time.perf_counter()

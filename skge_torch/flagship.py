@@ -173,16 +173,21 @@ def steps_per_epoch(tr: OutOfCoreTrainer, buckets: Optional[int] = None) -> int:
     return len(tr._bucket_order()[:buckets]) * max(1, min(tr.nbatches, tr.bucket_len))
 
 
-def state_digest(tr: OutOfCoreTrainer) -> str:
-    """A hash of every table of the trainer's state, bit for bit."""
-    tr.flush()
+def tables_digest(tables) -> str:
+    """A hash of the tensors `tables`, in order, bit for bit."""
     h = hashlib.blake2b(digest_size=16)
-    tables = [tr.e_host[k] for k in sorted(tr.e_host)]
-    tables += [tr.dev_params[k] for k in sorted(tr.dev_params)]
-    tables += [tr.dev_opt[k][s] for k in sorted(tr.dev_opt) for s in sorted(tr.dev_opt[k])]
     for t in tables:
         h.update(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy())
     return h.hexdigest()
+
+
+def state_digest(tr: OutOfCoreTrainer) -> str:
+    """A hash of every table of the trainer's state, bit for bit."""
+    tr.flush()
+    tables = [tr.e_host[k] for k in sorted(tr.e_host)]
+    tables += [tr.dev_params[k] for k in sorted(tr.dev_params)]
+    tables += [tr.dev_opt[k][s] for k in sorted(tr.dev_opt) for s in sorted(tr.dev_opt[k])]
+    return tables_digest(tables)
 
 
 def _sync(device: torch.device) -> None:

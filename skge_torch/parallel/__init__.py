@@ -23,8 +23,10 @@ from skge_torch.parallel.mesh import (
 )
 from skge_torch.parallel.partitioned import (
     SHARD_AXIS,
+    ExchangeCosts,
     PartitionedTrainer,
     RelabeledPoolSampler,
+    choose_exchange,
     init_state_partitioned,
     make_partitioned_ce_step,
     make_partitioned_epoch,
@@ -52,6 +54,7 @@ from skge_torch.parallel.shardmap_step import (
 
 __all__ = [
     "DATA_AXIS",
+    "ExchangeCosts",
     "MODEL_AXIS",
     "Mesh",
     "SHARD_AXIS",
@@ -59,6 +62,7 @@ __all__ = [
     "RelabeledPoolSampler",
     "ShardGroup",
     "batch_sharding",
+    "choose_exchange",
     "data_slice",
     "distributed",
     "init_state_partitioned",

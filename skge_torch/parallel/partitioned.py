@@ -44,7 +44,7 @@ from __future__ import annotations
 
 import math
 import warnings
-from dataclasses import replace
+from dataclasses import dataclass, replace
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -68,6 +68,94 @@ EXCHANGES = ("dense", "ragged", "emulate")
 
 # host waits of the ragged exchange (its split sizes are read on the host)
 host_waits = 0
+
+
+# ---------------------------------------------------------------------------
+# Exchange choice (`exchange='auto'`): the JAX package's cost model in
+# seconds. The dense exchange moves P*C*d (the object rows' all-to-all) +
+# P*(C+k)*d (the gradient return of the boundary and non-owned pool rows)
+# + 2*k*d (the pool rows' all-reduce) bytes a rank and step; the ragged one
+# routes the first two terms by owner (P-fold fewer bytes), keeps the
+# all-reduce, and waits for the host twice a step (a fixed latency). The
+# dense transfer may hide behind the pool dots' compute where the
+# collectives overlap it; the port's do not (below).
+# ---------------------------------------------------------------------------
+
+# `ExchangeCosts`' card defaults, as `chip_smoke.py` 11g read them on one NVIDIA
+# H100 80GB HBM3 at a 700 W power limit: the median of 4 rounds of 50 fp32 (TF32
+# off) `torch.mm` calls at (4,832 x 150) @ (150 x 1,024) (2.868826e13-2.886859e13
+# FLOP/s), and the ragged trainer's median step less the dense one's at P=1 over
+# NCCL, 4 epochs of 20 steps each (rounds 4.3260-5.0806 ms apart). Four runs on
+# such cards read 2.817636e13-2.918426e13 FLOP/s and 4.9199-7.6015 ms.
+FP32_FLOPS_PER_S = 2.880138e13
+RAGGED_LATENCY_S = 4.9199e-3
+
+
+@dataclass(frozen=True)
+class ExchangeCosts:
+    """The constants of `choose_exchange`, in seconds and bytes a second.
+
+    `link_bytes_per_s`, the collective rate between cards, has no default:
+    one card cannot measure it, so the caller states it. The pool-dot rate
+    and the ragged latency default to what `chip_smoke.py` 11g measured on
+    one H100. The hiding terms default to no overlap: the port's exchanges
+    are blocking collectives on the step's stream (this module issues no
+    `async_op`), so no compute hides them.
+    """
+
+    link_bytes_per_s: float
+    fp32_flops_per_s: float = FP32_FLOPS_PER_S  # the pool dots' rate
+    ragged_latency_s: float = RAGGED_LATENCY_S  # the ragged exchange's cost a step
+    compute_fudge: float = 1.0  # compute the schedule hides per pool-dot flop
+    overlap_eff: float = 0.0    # the share of it that overlaps a collective
+    hide_saturation_s: float = math.inf  # the most a step can hide
+
+
+def choose_exchange(
+    d: int,
+    cap: int,
+    k: int,
+    batch_per_shard: int,
+    p: int,
+    costs: ExchangeCosts,
+    n_modes: int = 2,
+    dtype_bytes: int = 4,
+):
+    """'dense' or 'ragged' for the boundary exchange, from the bytes each
+    moves, the compute that can hide the dense transfer, and the ragged
+    exchange's fixed latency: `skge_tpu.parallel.partitioned.
+    choose_exchange` with `costs` in place of its TPU constants, in the
+    same order of arithmetic. The byte terms are the same for every
+    cap-based loss; `n_modes` is the number of pool-scoring directions (2
+    for pairwise and selfadv, len(directions) for sampled CE). Ragged wins
+    only on a strictly smaller exposed time.
+
+    Returns (choice, report): the report has the JAX package's keys with
+    seconds (`_s`) in place of its cycles.
+    """
+    cap = min(cap, batch_per_shard)
+    dot_flops = 6.0 * n_modes * batch_per_shard * k * d  # pool dots, fwd+bwd
+    hide = min(
+        costs.overlap_eff * costs.compute_fudge * dot_flops / costs.fp32_flops_per_s,
+        costs.hide_saturation_s,
+    )
+    psum = 2.0 * k * d * dtype_bytes                 # pool rows, both modes
+    dense_bytes = (p * cap + p * (cap + k)) * d * dtype_bytes + psum
+    ragged_bytes = (cap + (cap + k)) * d * dtype_bytes + psum
+    dense_s = dense_bytes / costs.link_bytes_per_s
+    exposed_dense = max(0.0, dense_s - hide)
+    exposed_ragged = ragged_bytes / costs.link_bytes_per_s + costs.ragged_latency_s
+    choice = "ragged" if exposed_ragged < exposed_dense else "dense"
+    return choice, {
+        "n_modes": n_modes,
+        "dense_bytes": round(dense_bytes),
+        "ragged_bytes": round(ragged_bytes),
+        "dense_transfer_s": dense_s,
+        "hideable_compute_s": hide,
+        "exposed_dense_s": exposed_dense,
+        "exposed_ragged_s": exposed_ragged,
+        "choice": choice,
+    }
 
 
 def relabel_entities(
@@ -831,10 +919,19 @@ class PartitionedTrainer:
     (the CE losses) expects triples from `data.add_reciprocal_relations`
     and a model with the doubled relation count; it trains the object
     direction only and `evaluate` asks head queries through the inverse
-    relation. `exchange`: '' or 'dense', 'ragged' (owner-routed,
-    `all_to_all_single` with uneven splits) or 'emulate' (the ragged
-    layout in fixed blocks); the three give the same values. The boundary
-    cap is the exact one (`object_boundary_cap`).
+    relation. `exchange`: 'dense', 'ragged' (owner-routed,
+    `all_to_all_single` with uneven splits), 'emulate' (the ragged layout
+    in fixed blocks), 'auto', or '' (the legacy `ragged` argument decides);
+    the three exchanges give the same values. 'auto' picks dense or ragged
+    by `choose_exchange` with `exchange_costs` (required: the link rate
+    between cards is the caller's to state) at this trainer's d, cap, pool,
+    batch a step and shard count, and records the choice and the model's
+    numbers, with the loss, in `stats['exchange']`. `ragged` (False, True
+    or 'emulate') is the JAX package's legacy argument, exclusive with
+    `exchange`; True (and 'ragged', chosen or given) is the real uneven
+    `all_to_all_single` on gloo and NCCL alike, where the JAX package's
+    'ragged' runs its dense emulation on every backend but the TPU. The
+    boundary cap is the exact one (`object_boundary_cap`).
     """
 
     def __init__(
@@ -852,13 +949,19 @@ class PartitionedTrainer:
         reciprocal: bool = False,
         label_smoothing: float = 0.0,
         exchange: str = "",
+        exchange_costs: Optional[ExchangeCosts] = None,
+        ragged=False,
     ):
-        if exchange == "auto":
-            raise NotImplementedError(
-                "exchange='auto' waits for a cost model measured on two or more "
-                "GPUs (ROADMAP.md, queue 1); pass 'dense', 'ragged' or 'emulate'")
-        if exchange not in ("",) + EXCHANGES:
+        if exchange and ragged:
+            raise ValueError("pass either `exchange` or legacy `ragged`")
+        if exchange not in ("", "auto") + EXCHANGES:
             raise ValueError(f"unknown exchange mode {exchange!r}")
+        if ragged not in (False, True, "emulate"):
+            raise ValueError(f"ragged must be False, True or 'emulate', got {ragged!r}")
+        if exchange == "auto" and exchange_costs is None:
+            raise ValueError(
+                "exchange='auto' needs exchange_costs=ExchangeCosts(link_bytes_per_s=...): "
+                "the link rate between cards is not measured on one card, so give it")
         if reciprocal and loss not in ("ce", "sampled_ce"):
             raise ValueError("reciprocal=True requires loss='ce' or 'sampled_ce'")
         self.group = group = group if group is not None else make_shard_mesh()
@@ -876,10 +979,22 @@ class PartitionedTrainer:
         self.opt = opt
         self.reciprocal = reciprocal
         self.seed = seed
-        self.exchange = exchange or "dense"
         self.sampler = RelabeledPoolSampler(self.new_of_old, k=k)
         length = batches.shape[1]
         self.nbatches = max(1, min(nbatches, length))
+        if exchange == "auto":
+            per_batch = max(1, length // self.nbatches)
+            # the hideable pool compute scales with the scoring directions: 2
+            # for pairwise and selfadv, len(directions) for sampled CE
+            n_modes = (1 if reciprocal else 2) if loss == "sampled_ce" else 2
+            exchange, report = choose_exchange(
+                d=model.ncomp, cap=min(self.cap, per_batch), k=k,
+                batch_per_shard=per_batch, p=n_shards, costs=exchange_costs,
+                n_modes=n_modes)
+            report["loss"] = loss
+            self.stats["exchange"] = report
+        self.exchange = exchange or {False: "dense", True: "ragged",
+                                     "emulate": "emulate"}[ragged]
         self._epoch = make_partitioned_epoch(
             self.model, opt, self.sampler, margin, group, length=length,
             nbatches=self.nbatches, boundary_cap=self.cap,

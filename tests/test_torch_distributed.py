@@ -177,14 +177,15 @@ def test_gather_none_is_bit_equal_and_calls_follow_jax(fn_name):
 
 
 def test_partitioned_trainer_refuses_what_it_does_not_have():
-    """`exchange='auto'` waits for a cost model measured on GPUs and says
-    where that stands; an unknown exchange and a reciprocal margin loss are
-    refused before any process group is formed."""
+    """`exchange='auto'` without the link rate between cards (which one
+    card cannot measure) says that it needs it; an unknown exchange and a
+    reciprocal margin loss are refused before any process group is
+    formed."""
     from skge_torch import AdaGrad
     from skge_torch.parallel.partitioned import PartitionedTrainer
 
     model, triples = TransE(N_E, N_R, D), np.zeros((4, 3), np.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="link rate between cards"):
         PartitionedTrainer(model, AdaGrad(), triples, exchange="auto")
     with pytest.raises(ValueError, match="unknown exchange"):
         PartitionedTrainer(model, AdaGrad(), triples, exchange="nccl")
