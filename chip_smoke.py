@@ -332,8 +332,9 @@ Phases, each fatal:
       bit;
    15c 15a's streamed ranks against `FilteredRankingEval` on the same
       params, by the 1e-5 gap rule;
-   15d `python -m skge_torch.profile_step --epochs 1` (the main path's phase
-      ablation at FB15k's shape): 1 K1 a step of its full phase;
+   15d `python -m skge_torch.profile_step --epochs 1` (the main path's step
+      at FB15k's shape, its spans read under the profiler): 1 K1 a step of
+      the warm-up and the traced epoch;
    15e `python -m skge_torch.ooc_ce_ab --epochs 1 --eval-every 1 --arms
       ce:1,sampled_ce:2` at WN18's shape: 1 K1 a sampled-CE step, none for
       full CE, a row per arm.
@@ -4083,7 +4084,7 @@ def profile_step_phase(dev, launches) -> None:
     report, _ = _run_logged("15d", profile_step.main, argv)
     counts = read_counts()
     args = profile_step.parse_args(argv)
-    steps = (1 + args.epochs) * args.nbatches  # the full phase's warm-up and timed epochs
+    steps = (1 + args.epochs) * args.nbatches  # the warm-up and the traced epochs
     if dev.type == "cuda":
         check(counts == _launches(steps, 0, steps), f"15d: launches {counts}")
     for name in launches:

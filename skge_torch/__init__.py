@@ -37,6 +37,9 @@ steps:
     Trainer(HolE(n_e, n_r, 150), RandomModeSampler(n_e), TrainConfig()).fit(train)
 """
 
+# first: `training` imports `utils.metrics`, and `utils` imports `training`
+from skge_torch.utils import (AsyncCheckpointer, MetricsLogger, load_checkpoint,
+                              save_checkpoint)
 from skge_torch.evaluation import (FilteredRankingEval, ReciprocalEvalWrapper,
                                    evaluate, relation_categories,
                                    triple_classification)
@@ -67,8 +70,6 @@ from skge_torch.training import (
     make_sampled_ce_step,
     make_selfadv_step,
 )
-from skge_torch.utils import (AsyncCheckpointer, MetricsLogger, load_checkpoint,
-                              save_checkpoint)
 
 __version__ = "0.1.0"
 

@@ -1,15 +1,18 @@
 """Train-step profiler of the port: `scripts/profile_step.py`'s
 counterpart, `python -m skge_torch.profile_step`.
 
-1. **Phase ablation** (always): times three growing fragments of the
-   pairwise train step over whole epochs -- negative sampling alone
-   (`sample`), then the forward and backward gradients (`grads`), then the
-   optimizer's apply (`full`) -- and reports each epoch's milliseconds and
-   their differences (`breakdown_ms`). Each timing starts and ends in
-   `torch.cuda.synchronize()` on the card.
-2. **Trace** (`--trace DIR`): one more epoch of the full step under
-   `torch.profiler`, written to `DIR/trace.json` as a Chrome trace
-   (chrome://tracing, Perfetto). A failure to trace raises.
+Runs the real pairwise step (`training.make_pairwise_step` through
+`make_epoch_fn`): one warm-up epoch, then `--epochs` epochs under
+`torch.profiler`, and reads the step's own spans
+(`utils.metrics.span_totals`): on the card the stream's time inside each
+span, on the CPU the host's. `breakdown_ms` is an epoch's milliseconds in
+the sampler (`sampling`: `skge_torch.train.sample`), the sweep and its
+backward (`fwd+bwd`: `skge_torch.train.score`) and the aggregation and
+optimizer update (`apply`: `skge_torch.train.aggregate` +
+`skge_torch.train.update`); `epoch_ms` adds them up in that order
+(`sample`, `grads`, `full`: the traced epochs' whole step). `--trace DIR`
+writes the same profile to `DIR/trace.json` as a Chrome trace
+(chrome://tracing, Perfetto), the spans with the kernels on one clock.
 
 The defaults are the main path: TransE (L1), ncomp 150, a shared pool of
 k = 1,024, at FB15k's shape (14,951 entities, 1,345 relations, 483,142
@@ -30,20 +33,23 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import time
+from itertools import accumulate
 
 import torch
 
 from skge_torch.data import synthetic_kg
 from skge_torch.models import MODELS
-from skge_torch.ops.aggregate import FactoredOcc
 from skge_torch.optim import AdaGrad
 from skge_torch.sampling import RandomModeSampler, SharedNegativeSampler
-from skge_torch.training import (StepMetrics, TrainState, apply_gradients,
-                                 init_state, make_epoch_fn, pairwise_grads_fused,
-                                 select_shared_pairwise_fn)
+from skge_torch.training import init_state, make_epoch_fn, make_pairwise_step
+from skge_torch.utils.metrics import span_totals
 
-PHASES = ("sample", "grads", "full")
+# breakdown_ms's phases and the spans each sums, in the step's order
+PHASES = {
+    "sampling": ("skge_torch.train.sample",),
+    "fwd+bwd": ("skge_torch.train.score",),
+    "apply": ("skge_torch.train.aggregate", "skge_torch.train.update"),
+}
 
 
 def parse_args(argv=None):
@@ -93,59 +99,22 @@ def main(argv=None) -> dict:
     else:
         sampler = RandomModeSampler(ds.n_entities, modes=(0, 1) * args.negatives)
     xs = torch.as_tensor(ds.train, dtype=torch.int64, device=device)
-    n = ds.train.shape[0]
-
-    def grads_of(state, batch, mask):
-        if shared:
-            pool = sampler.pool(state.generator, batch, mask)
-            return select_shared_pairwise_fn(model)(
-                model, state.params, batch, pool, mask, 1.0, modes=sampler.modes)
-        corr = sampler.corruptions(state.generator, batch, mask)
-        return pairwise_grads_fused(model, state.params, batch, corr, mask, 1.0)
-
-    def make_variant(phase):
-        def step(state: TrainState, batch, mask, rows=None):
-            nxt = TrainState(state.params, state.opt_state, state.generator,
-                             state.step + 1)
-            if phase == "sample":
-                if shared:
-                    probe = torch.sum(sampler.pool(state.generator, batch, mask))
-                else:
-                    probe = sum(torch.sum(r) for _, r, _ in
-                                sampler.corruptions(state.generator, batch, mask))
-                loss = probe.to(torch.float32)
-                return nxt, StepMetrics(loss=loss, nviolations=loss)
-            loss, nviol, occ, g_dense = grads_of(state, batch, mask)
-            if phase == "grads":
-                probe = 0.0
-                for entry in occ.values():
-                    if isinstance(entry, FactoredOcc):
-                        probe += sum(torch.sum(u) for u in entry.us)
-                        probe += sum(torch.sum(v) for v in entry.vs)
-                    else:
-                        probe += torch.sum(entry[1])
-                return nxt, StepMetrics(loss=loss + probe, nviolations=nviol)
-            params, opt_state = apply_gradients(
-                model, opt, state.params, state.opt_state, occ, g_dense,
-                args.aggregate, premasked=True, step=state.step)
-            return (TrainState(params, opt_state, state.generator, state.step + 1),
-                    StepMetrics(loss=loss, nviolations=nviol))
-
-        return make_epoch_fn(step, n, args.nbatches)
-
-    def fresh():
-        return init_state(model, opt, torch.Generator(device=device).manual_seed(0))
-
-    def timed(fn):
-        state, m = fn(fresh(), xs)  # warm-up epoch
-        _sync(device)
-        t0 = time.perf_counter()
+    step = make_pairwise_step(model, opt, sampler, margin=1.0, aggregate=args.aggregate)
+    epoch = make_epoch_fn(step, ds.train.shape[0], args.nbatches)
+    state = init_state(model, opt, torch.Generator(device=device).manual_seed(0))
+    state, _ = epoch(state, xs)  # warm-up
+    _sync(device)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
         for _ in range(args.epochs):
-            state, m = fn(state, xs)
+            state, _ = epoch(state, xs)
         _sync(device)
-        return (time.perf_counter() - t0) / args.epochs
-
-    times = {ph: timed(make_variant(ph)) for ph in PHASES}
+    totals = span_totals()
+    clock = 2 if device.type == "cuda" else 1  # stream_s on the card, host_s here
+    phase_ms = {ph: sum(totals[name][clock] for name in names) * 1e3 / args.epochs
+                for ph, names in PHASES.items()}
     report = {
         "config": {
             "model": args.model, "sampler": args.sampler,
@@ -153,25 +122,13 @@ def main(argv=None) -> dict:
             "k": args.k if shared else None,
             "negatives": None if shared else args.negatives,
         },
-        "epoch_ms": {ph: round(t * 1e3, 1) for ph, t in times.items()},
-        "breakdown_ms": {
-            "sampling": round(times["sample"] * 1e3, 1),
-            "fwd+bwd": round((times["grads"] - times["sample"]) * 1e3, 1),
-            "apply": round((times["full"] - times["grads"]) * 1e3, 1),
-        },
+        "epoch_ms": {key: round(t, 3) for key, t in zip(("sample", "grads", "full"),
+                                                       accumulate(phase_ms.values()))},
+        "breakdown_ms": {ph: round(t, 3) for ph, t in phase_ms.items()},
     }
     print(json.dumps(report, indent=2))
 
     if args.trace:
-        fn = make_variant("full")
-        state, _ = fn(fresh(), xs)
-        _sync(device)
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if device.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        with torch.profiler.profile(activities=acts) as prof:
-            fn(state, xs)
-            _sync(device)
         os.makedirs(args.trace, exist_ok=True)
         path = os.path.join(args.trace, "trace.json")
         prof.export_chrome_trace(path)

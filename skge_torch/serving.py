@@ -48,6 +48,7 @@ from skge_torch.data import true_triple_index
 from skge_torch.evaluation import NEG_INF
 from skge_torch.models.base import KGEModel, Params, entity_param
 from skge_torch.utils.device import resolve_device
+from skge_torch.utils.metrics import span
 
 __all__ = [
     "LinkPredictor",
@@ -287,12 +288,14 @@ class LinkPredictor:
         if self.group is not None:
             return self._sharded_batch(ent, rel, frows, fents, direction, k)
         model, params = self.model, self.params
-        rows = _query_rows(model, params, ent, rel, direction)
-        scores = model.score_pool(rows, _deq(params[entity_param(model)]),
-                                  model.dense_params(params), _MODE[direction])
-        _set_filtered(scores, frows, fents)
-        vals, ids = _top_k(scores, k)
-        return _mask_invalid(vals, ids.to(torch.int32))
+        with span("skge_torch.serve.score"):
+            rows = _query_rows(model, params, ent, rel, direction)
+            scores = model.score_pool(rows, _deq(params[entity_param(model)]),
+                                      model.dense_params(params), _MODE[direction])
+        with span("skge_torch.serve.topk"):
+            _set_filtered(scores, frows, fents)
+            vals, ids = _top_k(scores, k)
+            return _mask_invalid(vals, ids.to(torch.int32))
 
     def _sharded_rows(self, idx_by_role):
         """Each slot's rows on the candidate-sharded engine: entity rows by
@@ -355,15 +358,18 @@ class LinkPredictor:
         out_vals = np.empty((n, k), np.float32)
         dev = self.device
         for start in range(0, n, bs):
-            batch = q[start : start + bs]
-            nvalid = batch.shape[0]
-            frows, fents = _filter_pairs_for_batch(batch, index, nvalid)
-            vals, ids = self._batch(
-                *(torch.as_tensor(a, dtype=torch.int64, device=dev)
-                  for a in (batch[:, 0], batch[:, 1], frows, fents)),
-                direction, k)
-            out_ids[start : start + nvalid] = ids.cpu().numpy()
-            out_vals[start : start + nvalid] = vals.cpu().numpy()
+            with span("skge_torch.serve.batch"):
+                batch = q[start : start + bs]
+                nvalid = batch.shape[0]
+                with span("skge_torch.serve.filter"):
+                    frows, fents = _filter_pairs_for_batch(batch, index, nvalid)
+                vals, ids = self._batch(
+                    *(torch.as_tensor(a, dtype=torch.int64, device=dev)
+                      for a in (batch[:, 0], batch[:, 1], frows, fents)),
+                    direction, k)
+                with span("skge_torch.serve.fetch"):
+                    out_ids[start : start + nvalid] = ids.cpu().numpy()
+                    out_vals[start : start + nvalid] = vals.cpu().numpy()
         return TopKResult(entities=out_ids, scores=out_vals)
 
     @torch.no_grad()

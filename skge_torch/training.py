@@ -58,6 +58,7 @@ from skge_torch.ops.aggregate import (
     segment_outer_mean_dense,
 )
 from skge_torch.optim import POST_CONSTRAINTS, Optimizer, OptState
+from skge_torch.utils.metrics import span
 
 
 class TrainState(NamedTuple):
@@ -810,33 +811,36 @@ def apply_gradients(
         return grads * count.reshape((-1,) + (1,) * (grads.dim() - 1))
 
     def apply_dense_grads(pname, dg: DenseGrads):
-        dg = dg._replace(grads=regularized(
-            model, pname, summed(dg.grads, dg.count), params[pname]))
-        params[pname], opt_state[pname] = opt.apply_dense_masked(
-            params[pname], opt_state[pname], dg,
-            model.post_constraints.get(pname), step=step,
-        )
+        with span("skge_torch.train.update"):
+            dg = dg._replace(grads=regularized(
+                model, pname, summed(dg.grads, dg.count), params[pname]))
+            params[pname], opt_state[pname] = opt.apply_dense_masked(
+                params[pname], opt_state[pname], dg,
+                model.post_constraints.get(pname), step=step,
+            )
 
     factored = {p: f for p, f in occ.items() if isinstance(f, FactoredOcc)}
     occ = {p: o for p, o in occ.items() if p not in factored}
     for pname, f in factored.items():
         if aggregate in _DENSE_MODES:
-            apply_dense_grads(
-                pname, segment_outer_mean_dense(f, model.num_rows(pname))
-            )
+            with span("skge_torch.train.aggregate"):
+                dg = segment_outer_mean_dense(f, model.num_rows(pname))
+            apply_dense_grads(pname, dg)
         else:
             outers = sum(u[:, :, None] * v[:, None, :] for u, v in zip(f.us, f.vs))
             occ[pname] = (f.idx, outers, f.count)
 
     if aggregate == "unique":
         for pname, (idx, g, m) in occ.items():
-            ug = segment_mean_unique(idx, g, m, model.num_rows(pname), premasked)
-            ug = ug._replace(grads=regularized(
-                model, pname, summed(ug.grads, ug.count), params[pname][ug.uidx]))
-            params[pname], opt_state[pname] = opt.apply_unique(
-                params[pname], opt_state[pname], ug,
-                model.post_constraints.get(pname), step=step,
-            )
+            with span("skge_torch.train.aggregate"):
+                ug = segment_mean_unique(idx, g, m, model.num_rows(pname), premasked)
+            with span("skge_torch.train.update"):
+                ug = ug._replace(grads=regularized(
+                    model, pname, summed(ug.grads, ug.count), params[pname][ug.uidx]))
+                params[pname], opt_state[pname] = opt.apply_unique(
+                    params[pname], opt_state[pname], ug,
+                    model.post_constraints.get(pname), step=step,
+                )
     else:
         groups: dict = {}
         for pname in occ:
@@ -846,10 +850,11 @@ def apply_gradients(
             for pname in names:
                 offsets[pname] = total
                 total += model.num_rows(pname)
-            cidx = torch.cat([occ[p][0] + offsets[p] for p in names])
-            cg = torch.cat([occ[p][1] for p in names])
-            cm = torch.cat([occ[p][2] for p in names])
-            dg_all = segment_mean_dense(cidx, cg, cm, total, premasked)
+            with span("skge_torch.train.aggregate"):
+                cidx = torch.cat([occ[p][0] + offsets[p] for p in names])
+                cg = torch.cat([occ[p][1] for p in names])
+                cm = torch.cat([occ[p][2] for p in names])
+                dg_all = segment_mean_dense(cidx, cg, cm, total, premasked)
             for pname in names:
                 lo = offsets[pname]
                 hi = lo + model.num_rows(pname)
@@ -858,9 +863,10 @@ def apply_gradients(
                     DenseGrads(grads=dg_all.grads[lo:hi], count=dg_all.count[lo:hi]),
                 )
     for pname, g in g_dense.items():
-        params[pname], opt_state[pname] = opt.apply_full(
-            params[pname], opt_state[pname], g, step=step
-        )
+        with span("skge_torch.train.update"):
+            params[pname], opt_state[pname] = opt.apply_full(
+                params[pname], opt_state[pname], g, step=step
+            )
     return params, opt_state
 
 
@@ -969,14 +975,18 @@ def make_pairwise_step(
         shared_fn = select_shared_pairwise_fn(model)
 
         def grads_fn(state, batch, mask, rows):
-            pool_idx = sampler.pool(state.generator, batch, mask)
-            return shared_fn(model, state.params, batch, pool_idx, mask, margin,
-                             modes=sampler.modes)
+            with span("skge_torch.train.sample"):
+                pool_idx = sampler.pool(state.generator, batch, mask)
+            with span("skge_torch.train.score"):
+                return shared_fn(model, state.params, batch, pool_idx, mask, margin,
+                                 modes=sampler.modes)
     elif fused and hasattr(sampler, "corruptions"):
         def grads_fn(state, batch, mask, rows):
-            corr = draw_corruptions(sampler, state.generator, batch, mask, rows)
-            return pairwise_grads_fused(model, state.params, batch, corr, mask,
-                                        margin)
+            with span("skge_torch.train.sample"):
+                corr = draw_corruptions(sampler, state.generator, batch, mask, rows)
+            with span("skge_torch.train.score"):
+                return pairwise_grads_fused(model, state.params, batch, corr, mask,
+                                            margin)
     else:
         update = make_pairwise_update(model, opt, margin, aggregate)
 
@@ -989,11 +999,12 @@ def make_pairwise_step(
 
     def step(state: TrainState, batch: torch.Tensor, mask: torch.Tensor,
              rows: Optional[int] = None):
-        loss, nviol, occ, g_dense = grads_fn(state, batch, mask, rows)
-        params, opt_state = apply_gradients(
-            model, opt, state.params, state.opt_state, occ, g_dense,
-            aggregate, premasked=True, step=state.step,
-        )
+        with span("skge_torch.train.step"):
+            loss, nviol, occ, g_dense = grads_fn(state, batch, mask, rows)
+            params, opt_state = apply_gradients(
+                model, opt, state.params, state.opt_state, occ, g_dense,
+                aggregate, premasked=True, step=state.step,
+            )
         new_state = TrainState(params, opt_state, state.generator, state.step + 1)
         return new_state, StepMetrics(loss=loss, nviolations=nviol)
 
@@ -1169,20 +1180,21 @@ def make_epoch_fn(step_fn: Callable, n_triples: int, nbatches: int, pad_to: int 
 
     def epoch(state: TrainState, xs: torch.Tensor,
               perm: Optional[torch.Tensor] = None):
-        if perm is None:
-            perm = torch.randperm(
-                n_triples, generator=state.generator, device=xs.device
-            )
-        perm = perm.to(xs.device)
-        pad_idx = torch.cat([perm, perm.new_zeros(padded - n_triples)])
-        masks = (
-            torch.arange(padded, device=xs.device) < n_triples
-        ).to(torch.float32).reshape(nbatches, batch_size)
-        b_idx = pad_idx.reshape(nbatches, batch_size)
-        if extra:
-            b_idx = torch.nn.functional.pad(b_idx, (0, extra))
-            masks = torch.nn.functional.pad(masks, (0, extra))
-        batches = xs[b_idx]
+        with span("skge_torch.train.shuffle"):
+            if perm is None:
+                perm = torch.randperm(
+                    n_triples, generator=state.generator, device=xs.device
+                )
+            perm = perm.to(xs.device)
+            pad_idx = torch.cat([perm, perm.new_zeros(padded - n_triples)])
+            masks = (
+                torch.arange(padded, device=xs.device) < n_triples
+            ).to(torch.float32).reshape(nbatches, batch_size)
+            b_idx = pad_idx.reshape(nbatches, batch_size)
+            if extra:
+                b_idx = torch.nn.functional.pad(b_idx, (0, extra))
+                masks = torch.nn.functional.pad(masks, (0, extra))
+            batches = xs[b_idx]
         metrics = []
         for b in range(nbatches):
             state, m = step_fn(state, batches[b], masks[b], **kw)
