@@ -26,9 +26,9 @@ Reference-exact iid negatives (`pairwise_grads_fused`):
 Phases, each fatal:
 
 1. environment: versions, the card's name and power limit; no GPU -> exit 2;
-2. build both kernels and the grouping by row that K1's deterministic
-   variant and K2 run first (skge_torch/csrc/group_by_row.cu) from source
-   with nvcc, in parallel;
+2. build both kernels, the grouping by row that K1's deterministic
+   variant and K2 run first (skge_torch/csrc/group_by_row.cu) and K3
+   (skge_torch/csrc/l1_pool.cu) from source with nvcc, in parallel;
 3. each kernel against its plain PyTorch version on the card, at the
    paths' shapes and at edge shapes, and timed beside its bound (the bytes
    it must move at 3.35 TB/s, or its fp32 operations at 67 TFLOP/s).
@@ -77,9 +77,18 @@ Phases, each fatal:
    of the occurrences on one row and with Zipf-distributed ids, beside its
    grouping alone, and at FB15k's shape beside the nearest library
    composite (`einsum` of the outer products, then `index_add_`);
+   K3 (`l1_pool`, the TransE-L1 pool sweep, which replaces no TPU kernel):
+   forward, dq and dp against the plain versions in fp64 within fp32's
+   summation bounds and bit-equal in two calls, at the pool step's shape
+   (both modes' 9,664 queries against 1,024 pool rows, d = 150), a serving
+   batch's (1,024 against 14,951) and ragged ones; timed at the first
+   (forward and backward) beside the chunked sweep it replaced, and at the
+   second (forward) beside the chunked forward, `-torch.cdist(q, p, p=1)`
+   as the library at both;
 4. training, each path with the launch counts set to 0 just before it and
    read just after, exact launch counts (every gradient scatter on K1's
-   16-byte path), finite losses and params on the
+   16-byte path; K3's forward and two gradients a TransE-L1 pool step, and
+   a forward a ranking or serving batch), finite losses and params on the
    card: TransE (4), RESCAL pairwise (4b), 2 epochs of 100 steps each;
    RESCAL pointwise 10 steps (4c); iid TransE (4d), HolE (4e) and ER-MLP
    (4f), 2 epochs of 100 steps each, with the device's busy time per step
@@ -375,9 +384,9 @@ its last line {"ok": true, "device": {...}}.
 
 `--kernel-times` runs phases 1-2 and phase 3's timings alone, on the same
 inputs and without the checks, and prints no result line. Copied into an
-older tree of the repository that has `skge_torch/ops/grouping.py` and run
-there, it times that tree's kernels at this tree's shapes: parent against
-change on one card.
+older tree of the repository that has `skge_torch/ops/grouping.py` and
+`skge_torch/ops/cuda_l1.py` and run there, it times that tree's kernels at
+this tree's shapes: parent against change on one card.
 """
 
 from __future__ import annotations
@@ -399,6 +408,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from skge_torch import (bench, compat, density_curve, flagship, ooc_ce_ab, profile_step,
                         quality_suite, rotate_probe, run_rescal, scaling_bench,
@@ -419,10 +429,10 @@ from skge_torch.data import (add_reciprocal_relations, bernoulli_probs, rows_wit
                              synthetic_kg, type_index_arrays, unigram_logits)
 from skge_torch.evaluation import classification_negatives
 from skge_torch.experiment import Experiment, make_parser
-from skge_torch.models import RotatE, conve
+from skge_torch.models import RotatE, conve, transe
 from skge_torch.models.base import ACTIVATIONS
 from skge_torch.optim import EPS
-from skge_torch.ops import _build, cuda_outer, cuda_segment, grouping
+from skge_torch.ops import _build, cuda_l1, cuda_outer, cuda_segment, grouping
 from skge_torch.outofcore import BucketPoolSampler, make_bucket_epoch
 from skge_torch.parallel import distributed as pdist
 from skge_torch.parallel import mesh as pmesh
@@ -482,8 +492,9 @@ KERNELS = {  # name: (wrapper module, source, the TPU kernel it replaces)
                           "skge_tpu/ops/pallas_outer.py:128"),
 }
 # built beside the kernels: the grouping by row that K1's deterministic
-# variant and K2 run first (ops/grouping.py)
-SOURCES = (*KERNELS, "group_by_row")
+# variant and K2 run first (ops/grouping.py), and K3, the TransE-L1 pool
+# sweep (ops/cuda_l1.py), which replaces no TPU kernel
+SOURCES = (*KERNELS, "group_by_row", "l1_pool")
 RTOL = ATOL = 1e-5  # segment_sum: fp32 sums in atomic order, as in tests/test_pallas.py
 # rows of more occurrences than this (only phase 3's two hot-row cases, of
 # 5,344 and 10,688) are held to the fp64 sum within their fp32 summation
@@ -495,6 +506,8 @@ LONG_ROW = 1024
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 VECTOR = "segment_sum 16-byte path"  # the launch count of K1's float4 path
+L1 = "l1_pool"  # K3's forward launches
+L1_GRAD = "l1_pool gradient"  # K3's gradient launches (dq and dp each one)
 # phase 3: K1's deterministic variant checked at these cases (7f's E and W
 # counts, 15a's and 15b's step, full-rank TransR's M, a hot row and all of
 # T on one row at RESCAL's E, the edge shapes) and timed at DET_TIMED
@@ -682,12 +695,16 @@ GEOMETRY_KG = {
                        latent_dim=16, seed=6, kind="rotational"),
 }
 # phase 16: `python -m skge_torch.bench` and the last entry points. Each
-# `--all` row's kernel calls a step (K1, K2, K1 on the 16-byte path); the
-# rows not listed scatter E, R and their other row tables of one width in
-# one K1 call. RotatE, PairRE and ConvE hold rows of two widths; full CE
-# updates whole tables, and sampled CE keeps its step factory's `unique`
-# aggregation (index_add_ over torch.unique), as the JAX package's bench does
+# `--all` row's kernel calls a step (K1, K2, K1 on the 16-byte path, K3's
+# forwards and gradients); the rows not listed scatter E, R and their other
+# row tables of one width in one K1 call. RotatE, PairRE and ConvE hold
+# rows of two widths; full CE updates whole tables, and sampled CE keeps its
+# step factory's `unique` aggregation (index_add_ over torch.unique), as the
+# JAX package's bench does
 BENCH_ROW_CALLS = {
+    # TransE-L1's rows: one K1, and K3's forward and two gradients a step
+    "--model transe": (1, 0, 1, 1, 2),
+    "--model transe --selfadv": (1, 0, 1, 1, 2),
     "--model rescal --ncomp 100": (2, 1, 1),
     "--model rotate": (2, 0, 2),
     "--model pairre": (2, 0, 2),
@@ -718,8 +735,7 @@ RUN_RESCAL = ["--sampler", "shared", "--aggregate", "dense_pallas", "--ncomp", "
 
 def bench_launches(config: str, steps: int) -> dict:
     """The kernel calls of `steps` steps of the bench row `config`."""
-    k1, k2, vector = BENCH_ROW_CALLS.get(config, (1, 0, 1))
-    return _launches(k1 * steps, k2 * steps, vector * steps)
+    return _launches(*(n * steps for n in BENCH_ROW_CALLS.get(config, (1, 0, 1))))
 
 
 def check(ok: bool, what: str) -> None:
@@ -773,7 +789,7 @@ def build() -> None:
         for line in (out or "").splitlines():
             if "registers" in line or "spill" in line:
                 log("    ptxas:", line.strip())
-    for mod in (*(mod for mod, _, _ in KERNELS.values()), grouping):
+    for mod in (*(mod for mod, _, _ in KERNELS.values()), grouping, cuda_l1):
         mod._lib()  # loads, binds the C interface
 
 
@@ -1254,6 +1270,128 @@ def segment_outer_sum_checks(dev, verify=True) -> tuple[float, list]:
     return worst, shapes
 
 
+def _l1_old_sweep(q, p, g):
+    """The TransE-L1 pool sweep before K3, forward and backward: chunks of
+    `transe.POOL_CHUNK` pool rows, each under `torch.utils.checkpoint`
+    (K3's yardstick; the port no longer runs it on fp32 card tensors)."""
+    qq, pp = q.detach().requires_grad_(), p.detach().requires_grad_()
+    s = torch.cat([checkpoint(cuda_l1.l1_pool_reference, qq, c, use_reentrant=False)
+                   for c in torch.split(pp, transe.POOL_CHUNK)], dim=1)
+    return torch.autograd.grad(s, [qq, pp], g)
+
+
+def _l1_k3_sweep(q, p, g):
+    """K3 forward and backward, as a shared-pool step runs it."""
+    qq, pp = q.detach().requires_grad_(), p.detach().requires_grad_()
+    return torch.autograd.grad(cuda_l1.l1_pool(qq, pp), [qq, pp], g)
+
+
+def _l1_cdist_sweep(q, p, g):
+    """The library's one call for the same distance, `-torch.cdist(q, p,
+    p=1)`, forward and backward (its gradient at an exact 0 is 0, not +1)."""
+    qq, pp = q.detach().requires_grad_(), p.detach().requires_grad_()
+    return torch.autograd.grad(-torch.cdist(qq, pp, p=1), [qq, pp], g)
+
+
+def check_l1_pool(name, q, p, g) -> float:
+    """One case: K3's forward and both gradients against the plain versions
+    in fp64 on the same fp32 inputs, within fp32's summation bounds ((d + 1)
+    u sum_d |q - p| for a score, (n + 64) u sum |G| for a gradient over n
+    rows), and bit-equal to a second call, with one forward and two
+    gradient launches a call; returns the max abs error of the scores."""
+    u = 2.0**-24
+    counters = lambda: (cuda_l1.launches, cuda_l1.backward_launches)
+    before = counters()
+    runs = []
+    for _ in range(2):
+        qq, pp = q.clone().requires_grad_(), p.clone().requires_grad_()
+        s = cuda_l1.l1_pool(qq, pp)
+        runs.append((s.detach(), *torch.autograd.grad(s, [qq, pp], g)))
+    torch.cuda.synchronize()
+    check(tuple(a - b for a, b in zip(counters(), before)) == (2, 4),
+          f"l1_pool: one forward and two gradient launches a call ({name})")
+    same = all(bool(torch.equal(a, b)) for a, b in zip(*runs))
+    s, dq, dp = runs[0]
+    (b, d), k = q.shape, p.shape[0]
+    q64, p64, g64 = q.double(), p.double(), g.double()
+    ok, worst, dp_want = True, 0.0, torch.zeros_like(p64)
+    chunk = max(1, 2**27 // (k * d))
+    for lo in range(0, b, chunk):
+        qs, gs = q64[lo:lo + chunk], g64[lo:lo + chunk]
+        want = cuda_l1.l1_pool_reference(qs, p64)
+        gap = (s[lo:lo + chunk].double() - want).abs()
+        ok = ok and bool((gap <= (d + 1) * u * want.abs()).all())
+        worst = max(worst, float(gap.max()))
+        dq_want, part = cuda_l1.l1_pool_backward_reference(qs, p64, gs)
+        dp_want += part
+        ok = ok and bool(((dq[lo:lo + chunk].double() - dq_want).abs()
+                          <= (k + 64) * u * gs.abs().sum(1, keepdim=True)).all())
+    ok = ok and bool(((dp.double() - dp_want).abs()
+                      <= (b + 64) * u * g64.abs().sum(0)[:, None]).all())
+    log(f"[3] l1_pool {name:22s} B={b:6d} K={k:6d} d={d:4d}  max|err| of S "
+        f"{worst:.3e}; S, dq, dp within fp32's summation bounds: "
+        f"{'ok' if ok else 'MISMATCH'}; two calls {'bit-equal' if same else 'DIFFER'}")
+    check(ok, f"l1_pool against its plain versions ({name})")
+    check(same, f"l1_pool repeats bit for bit ({name})")
+    return worst
+
+
+def l1_pool_checks(dev, verify=True) -> tuple[float, list]:
+    """K3 against its plain versions (`verify`, `check_l1_pool`) at the
+    benchmark cells' shapes and ragged ones; returns (max abs error of the
+    scores, [timed shapes]): the shared-pool step's sweep (both modes'
+    4,832 queries stacked against the pool of 1,024, forward and backward)
+    beside the chunked sweep it replaced, and a serving batch's forward
+    (1,024 queries against FB15k's 14,951 entities) beside the chunked
+    forward; `-torch.cdist(q, p, p=1)` timed as the library at both, and
+    its forward's error logged beside K3's. Operations: 2 an (i, j, d)
+    element forward, 3 a gradient."""
+    b, k, d = 2 * _batch_size(TRANSE), TRANSE.k, TRANSE.ncomp
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = [("pool step", b, k, d), ("serving batch", SERVE.batch, DATA.n_entities, d),
+             ("one query", 1, 33, 151), ("one pool row", 4_097, 1, 152),
+             ("ragged", 33, 4_097, 1)]
+    worst, inputs = 0.0, {}
+    for name, bb, kk, dd in cases:
+        q = torch.randn(bb, dd, generator=gen, device=dev)
+        p = torch.randn(kk, dd, generator=gen, device=dev)
+        g = torch.randn(bb, kk, generator=gen, device=dev)
+        if verify:
+            worst = max(worst, check_l1_pool(name, q, p, g))
+        inputs[name] = (q, p, g)
+    q, p, g = inputs["pool step"]
+    fm = (g > 0).to(torch.float32)  # the margin loss's G: the violation mask
+    times = time_rounds({"kernel": _l1_k3_sweep, "plain": _l1_old_sweep,
+                         "library": _l1_cdist_sweep}, (q, p, fm),
+                        f"l1_pool forward and backward at B={b}, K={k}, d={d} (pool step)",
+                        n=20, n_plain=3)
+    shapes = [timed_shape(f"B={b}, K={k}, d={d}: a pool step, forward and backward", times,
+                          nbytes=4 * (2 * b * d + 2 * k * d + 2 * b * k),
+                          flops=8 * b * k * d,
+                          library="-torch.cdist(q, p, p=1), forward and backward")]
+    q, p, _ = inputs["serving batch"]
+    with torch.no_grad():
+        times = time_rounds(
+            {"kernel": cuda_l1.l1_pool,
+             "plain": lambda qq, pp: torch.cat(  # the chunked forward it replaced
+                 [cuda_l1.l1_pool_reference(qq, c)
+                  for c in torch.split(pp, transe.POOL_CHUNK)], dim=1),
+             "library": lambda qq, pp: -torch.cdist(qq, pp, p=1)},
+            (q, p), f"l1_pool forward at B={q.shape[0]}, K={p.shape[0]}, d={d} "
+            "(serving batch)", n=20, n_plain=3)
+        want = cuda_l1.l1_pool_reference(q[:64].double(), p.double())
+        gaps = [float((s[:64].double() - want).abs().max())
+                for s in (cuda_l1.l1_pool(q, p), -torch.cdist(q, p, p=1))]
+    log(f"[3] l1_pool and -torch.cdist(q, p, p=1) at the serving batch's shape, the first "
+        f"64 queries against the fp64 sum: max|err| {gaps[0]:.3e} and {gaps[1]:.3e}")
+    shapes.append(timed_shape(f"B={q.shape[0]}, K={p.shape[0]}, d={d}: a serving batch, "
+                              "forward", times, nbytes=4 * (q.numel() + p.numel()
+                                                            + q.shape[0] * p.shape[0]),
+                              flops=2 * q.shape[0] * p.shape[0] * d,
+                              library="-torch.cdist(q, p, p=1)"))
+    return worst, shapes
+
+
 def make_model(cfg, ds):
     if cfg.model == "transe":
         return TransE(ds.n_entities, ds.n_relations, ncomp=cfg.ncomp)
@@ -1434,8 +1572,10 @@ def expected_launches(cfg) -> dict:
     16-byte path; W's counts (D = 1) the scalar one."""
     steps = cfg.steps or cfg.epochs * cfg.nbatches
     if cfg.model == "rescal":
-        return {"segment_sum": 2 * steps, "segment_outer_sum": steps, VECTOR: steps}
-    return {"segment_sum": steps, "segment_outer_sum": 0, VECTOR: steps}
+        return _launches(2 * steps, steps, steps)
+    if cfg.model == "transe" and cfg.sampler == "shared":  # K3, TransE-L1's pool sweep
+        return _transe_l1_pool(steps)
+    return _launches(steps, 0, steps)
 
 
 class FixedPool:
@@ -1579,16 +1719,28 @@ def reset_counts() -> None:
     cuda_segment.vector_launches = 0
     cuda_segment.deterministic_launches = cuda_segment.combine_launches = 0
     grouping.launches = 0
+    cuda_l1.launches = cuda_l1.backward_launches = 0
 
 
 def read_counts() -> dict:
     counts = {name: mod.launches for name, (mod, _, _) in KERNELS.items()}
     counts[VECTOR] = cuda_segment.vector_launches
+    counts[L1] = cuda_l1.launches
+    counts[L1_GRAD] = cuda_l1.backward_launches
     return counts
 
 
-def _launches(k1, k2, vector) -> dict:
-    return {"segment_sum": k1, "segment_outer_sum": k2, VECTOR: vector}
+def _launches(k1, k2, vector, l1=0, l1_grad=0) -> dict:
+    return {"segment_sum": k1, "segment_outer_sum": k2, VECTOR: vector, L1: l1,
+            L1_GRAD: l1_grad}
+
+
+def _transe_l1_pool(steps, forwards=0) -> dict:
+    """`steps` of TransE-L1's shared-pool step on the card: one K1 a step on
+    the 16-byte path (E and R in one scatter), one K3 forward (the modes'
+    queries stacked) and its two gradients (dq, dp); `forwards` more K3
+    forwards, a ranking's."""
+    return _launches(steps, 0, steps, steps + forwards, 2 * steps)
 
 
 def drive(dev, tag, what, trainer, xs, run, want, scored_per_epoch, launches):
@@ -2261,7 +2413,7 @@ def outofcore_margin(graph, dev, launches):
     init = tr.e_host["param"].clone()
     steps = _ooc_steps(tr)
     dt = _ooc_fit(tr, "10a", "TransE-L1 margin P=4, 3 cached parts, prefetch",
-                  _launches(steps, 0, steps), launches)
+                  _transe_l1_pool(steps), launches)
     check(tr.uploads <= len(tr.buckets) + 1,
           f"10a: {tr.uploads} uploads within the chained-order bound {len(tr.buckets) + 1}")
     if dev.type == "cuda":
@@ -2284,7 +2436,7 @@ def outofcore_margin(graph, dev, launches):
     for kw, tag in ((dict(prefetch=False), "prefetch off"), (dict(cache_parts=2),
                                                               "2 cached parts")):
         other = _ooc(model, graph.train, dev, **kw)
-        _ooc_fit(other, "10b", f"TransE-L1 margin P=4, {tag}", _launches(steps, 0, steps),
+        _ooc_fit(other, "10b", f"TransE-L1 margin P=4, {tag}", _transe_l1_pool(steps),
                  launches)
         err = _max_diff(ref, other.params())
         log(f"[10b] {tag}: max |dparam| {err:.3e} against 10a")
@@ -2326,12 +2478,12 @@ def outofcore_incore(graph, dev, launches) -> None:
     _sync(dev)
     counts = read_counts()
     if dev.type == "cuda":
-        check(counts == _launches(OOC.nbatches, 0, OOC.nbatches),
+        check(counts == _transe_l1_pool(OOC.nbatches),
               f"10c in-core: launches {counts}")
     for name in launches:
         launches[name] += counts[name]
     _ooc_fit(tr, "10c", f"TransE-L1 margin P=1 on {len(xs)} triples",
-             _launches(OOC.nbatches, 0, OOC.nbatches), launches)
+             _transe_l1_pool(OOC.nbatches), launches)
     got = tr.params()
     err = _max_diff(got, {k: v.cpu().numpy() for k, v in state.params.items()})
     viol = int(m.nviolations.sum())
@@ -2568,11 +2720,12 @@ def host_waits(run) -> int:
     return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
 
 
-def serving(graph, params, dev) -> None:
+def serving(graph, params, dev, launches) -> None:
     """10g: the serving engines on 10a's trained TransE-L1, on
     `skge_torch.serving_bench`'s query stream and timing at its defaults,
-    filtered by the train triples; then `serving_bench.main()` itself at its
-    defaults (random params, random known triples)."""
+    filtered by the train triples (the exact engine's timed run held to one
+    K3 forward a batch); then `serving_bench.main()` itself at its defaults
+    (random params, random known triples)."""
     model = TransE(graph.n_entities, graph.n_relations, 150)
     _, queries = serving_bench.query_stream(graph.n_entities, graph.n_relations,
                                             SERVE.nknown, SERVE.nqueries)
@@ -2594,7 +2747,11 @@ def serving(graph, params, dev) -> None:
             f"(host to host, {1e3 * dt / -(-n // SERVE.batch):.3f} ms a batch)")
         return res, dt
 
+    reset_counts()
     res, dt = timed(exact, "LinkPredictor exact")
+    batches = 2 * -(-n // SERVE.batch)  # the timed run and its warm-up pass
+    _counted("10g", f"LinkPredictor exact, {batches} batches", _launches(0, 0, 0, batches),
+             dev, launches)
     if dev.type == "cuda":
         nb = SERVE.profile_batches
         profile_run(lambda: exact.top_k(queries[: nb * SERVE.batch], k), nb,
@@ -2635,7 +2792,6 @@ def serving(graph, params, dev) -> None:
     streamed = filtered_like_exact(StreamedLinkPredictor(
         model, params, batch_size=SERVE.batch, chunk=SERVE.chunk, device=dev))
     sres, sdt = timed(streamed, f"StreamedLinkPredictor chunk {SERVE.chunk}")
-    batches = 2 * -(-n // SERVE.batch)  # the timed run and its warm-up pass
     log(f"[10g] streamed: {streamed.bytes_uploaded / batches / 1e6:.3f} MB uploaded a "
         f"query batch of {SERVE.batch}")
     if dev.type == "cuda":
@@ -2784,7 +2940,7 @@ def partitioned_margin(graph, dev, group, launches):
             f"of the first {counts}")
         check(np.isfinite(loss) and viol[0] > 0, f"11a {exchange}: finite loss, violations")
         if dev.type == "cuda":
-            check(counts == _launches(steps, 0, steps),
+            check(counts == _transe_l1_pool(steps),
                   f"11a {exchange}: launches {counts}, want 1 K1 a step on the 16-byte path")
         ppart.host_waits = 0
         waits = host_waits(run) if dev.type == "cuda" else run() and 0
@@ -2969,7 +3125,12 @@ def partitioned_cli(dev, launches) -> None:
         log(f"[11f] Experiment built in {time.perf_counter() - t0:.2f} s on "
             f"{exp.group.device} ({torch.distributed.get_backend()}), launch variables "
             f"unset: {sorted(saved) or 'none were set'}")
-        steps = exp.args.me * exp.scaleout.nbatches
+        a = exp.args
+        steps = a.me * exp.scaleout.nbatches
+        # K3 forwards of the rankings: a validation every --test-all epochs
+        # and the test, each 2 directions of ceil(n / --eval-batch) batches
+        ranked = [len(exp.ds.valid)] * (a.me // a.test_all) + [len(exp.ds.test)]
+        forwards = sum(2 * -(-n // a.eval_batch) for n in ranked)
         reset_counts()
         t0 = time.perf_counter()
         result = exp.run()
@@ -2982,7 +3143,7 @@ def partitioned_cli(dev, launches) -> None:
             "test " + json.dumps({k: round(v, 6) for k, v in result.items()}))
         check(np.isfinite(result["mrr"]) and 0 < result["mrr"] <= 1, "11f: finite test MRR")
         if dev.type == "cuda":
-            check(counts == _launches(steps, 0, steps), f"11f: launches {counts}")
+            check(counts == _transe_l1_pool(steps, forwards), f"11f: launches {counts}")
     finally:
         pdist.destroy()
         os.environ.update(saved)
@@ -3084,7 +3245,7 @@ def partitioned_auto(graph, xs, dev, group, dense, ragged, smi, launches) -> Non
               f"11g: 'auto' at P=1 chooses dense at {link:.0e} B/s")
         check(same, f"11g: 'auto' at {link:.0e} B/s trains as the dense trainer")
         if dev.type == "cuda":
-            check(counts == _launches(steps, 0, steps) and det == (steps, steps),
+            check(counts == _transe_l1_pool(steps) and det == (steps, steps),
                   f"11g: launches {counts}, {det}, want 1 deterministic K1 a step")
 
 
@@ -3179,7 +3340,7 @@ def mesh_trainer(graph, dev, mesh, launches):
     check(err <= STEP_TOL, f"12a: Trainer(mesh=) within {STEP_TOL} of the in-core Trainer")
     check(tr.nviolations == incore.nviolations, "12a: the same violations")
     if dev.type == "cuda":
-        check(counts == _launches(steps, 0, steps),
+        check(counts == _transe_l1_pool(steps),
               f"12a: launches {counts}, want 1 K1 a step on the 16-byte path")
     # the warm epoch, from the trained state, unrecorded
     epoch = make_epoch_fn(tr.make_step(), len(xs), steps, pad_to=mesh.data.size)
@@ -3845,7 +4006,7 @@ def geometry_gates(dev, launches) -> None:
     128, combines its chunks once."""
     runs = (("RESCAL bilinear", "bilinear", "rescal", 0.5, {"rparam": 0.0},
              _launches(2, 0, 2)),
-            ("TransE bilinear", "bilinear", "transe", 6.0, {}, _launches(1, 0, 1)),
+            ("TransE bilinear", "bilinear", "transe", 6.0, {}, _launches(1, 0, 1, 1, 2)),
             ("RotatE rotational", "rotational", "rotate", 3.0, {}, _launches(2, 0, 2)))
     res = {}
     for tag, kg, name, gamma, kw, per_step in runs:
@@ -4086,7 +4247,7 @@ def profile_step_phase(dev, launches) -> None:
     args = profile_step.parse_args(argv)
     steps = (1 + args.epochs) * args.nbatches  # the warm-up and the traced epochs
     if dev.type == "cuda":
-        check(counts == _launches(steps, 0, steps), f"15d: launches {counts}")
+        check(counts == _transe_l1_pool(steps), f"15d: launches {counts}")
     for name in launches:
         launches[name] += counts[name]
     ms = report["epoch_ms"]
@@ -4154,7 +4315,7 @@ def bench_default(dev, launches, phase4_ms) -> None:
     reset_counts()
     _, (rec,) = _run_logged("16a", bench.main, argv)
     steps = (1 + args.epochs) * args.nbatches
-    _counted("16a", "bench.py's defaults", _launches(steps, 0, steps), dev,
+    _counted("16a", "bench.py's defaults", _transe_l1_pool(steps), dev,
              launches)
     check(rec["metric"] == "transe_fb15k_scored_triples_per_s_per_chip"
           and rec["unit"] == "triples/s", "16a: bench.py's metric and unit")
@@ -4294,7 +4455,8 @@ def main(argv) -> int:
     t_build = time.perf_counter()
     verify = not argv
     checks = {"segment_sum": segment_sum_checks(dev, verify),
-              "segment_outer_sum": segment_outer_sum_checks(dev, verify)}
+              "segment_outer_sum": segment_outer_sum_checks(dev, verify),
+              "l1_pool": l1_pool_checks(dev, verify)}
     t_kernels = time.perf_counter()
     if not verify:  # phase 3's timings alone: no check, no result line
         log(json.dumps({name: shapes for name, (_, shapes) in checks.items()}))
@@ -4303,7 +4465,7 @@ def main(argv) -> int:
     graphs = {name: synthetic_kg(g.n_entities, g.n_relations, g.n_train,
                                  n_test=g.n_test, seed=g.seed, clustered=False)
               for name, g in (("fb15k", DATA), ("wn18", WN18))}
-    launches = dict.fromkeys([*KERNELS, VECTOR], 0)
+    launches = dict.fromkeys([*KERNELS, VECTOR, L1, L1_GRAD], 0)
     trained = {}
     for cfg, tag in PATHS:
         *run, counts, _, step_ms = train(cfg, graphs[cfg.data], dev, tag)
@@ -4357,7 +4519,7 @@ def main(argv) -> int:
     t_10e = time.perf_counter()
     outofcore_recipe(dev, launches)
     t_10f = time.perf_counter()
-    serving(fb15k, ooc.params(), dev)
+    serving(fb15k, ooc.params(), dev, launches)
     t_10g = time.perf_counter()
     outofcore_gates(dev, launches)
     t_10 = time.perf_counter()
@@ -4396,12 +4558,14 @@ def main(argv) -> int:
         "source": source,
         "replaces": replaces,
         "launches": launches[name],
+        **({"backward_launches": launches[L1_GRAD]} if name == L1 else {}),
         "max_abs_err": checks[name][0],
         **{key: checks[name][1][0].get(key) for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_call",
             "bound_share")},
         "shapes": checks[name][1],
-    } for name, (_, source, replaces) in KERNELS.items()]}))
+    } for name, (_, source, replaces) in {
+        **KERNELS, "l1_pool": (cuda_l1, "skge_torch/csrc/l1_pool.cu", None)}.items()]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

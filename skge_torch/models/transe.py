@@ -9,10 +9,15 @@ L1 takes |x| as `where(x >= 0, x, -x)`, whose gradient at x == 0 is +1, as
 difference (a pool row equal to the query) then trains as in the JAX
 package.
 
-The L1 pool and all-entity sweeps are plain PyTorch, chunked over the pool
-or the entities to bound the (B, chunk, d) broadcast. Under autograd (pool
-training, full cross entropy) each chunk is recomputed in the backward pass
-(`torch.utils.checkpoint`), so no (B, chunk, d) tensor outlives its chunk.
+The L1 pool and all-entity sweeps route by their inputs:
+- fp32 on the card: K3 (`ops/cuda_l1.l1_pool`, csrc/l1_pool.cu), one call
+  over the whole pool or table, forward and backward, no (B, K, d) tensor.
+  `score_pool_modes` stacks the modes' queries into that one call.
+- the CPU, and other dtypes on the card (`compute_dtype` bfloat16, fp64):
+  plain PyTorch, chunked over the pool or the entities to bound the (B,
+  chunk, d) broadcast. Under autograd (pool training, full cross entropy)
+  each chunk is recomputed in the backward pass (`torch.utils.checkpoint`),
+  so no (B, chunk, d) tensor outlives its chunk.
 L2 rides a matmul through the norm expansion ||q - e||^2 = |q|^2 - 2 q.e +
 |e|^2.
 """
@@ -25,6 +30,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from skge_torch.models.base import INITIALIZERS, KGEModel, Params
+from skge_torch.ops.cuda_l1 import l1_pool, l1_pool_reference
 
 POOL_CHUNK = 512
 ALL_CHUNK = 4096
@@ -35,17 +41,27 @@ def _abs(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, x, -x)
 
 
-def _neg_l1_pool_chunk(q: torch.Tensor, pblk: torch.Tensor) -> torch.Tensor:
-    return -torch.sum(_abs(q[:, None, :] - pblk[None, :, :]), dim=-1)
+def _on_k3(q: torch.Tensor, rows: torch.Tensor) -> bool:
+    return q.is_cuda and q.dtype == rows.dtype == torch.float32
+
+
+def _pool_query(rows, mode: int) -> torch.Tensor:
+    """The (B, d) query a pool row is compared with: es + rp (mode 1, the
+    object corrupted) or eo - rp (mode 0)."""
+    return rows["es"] + rows["rp"] if mode == 1 else rows["eo"] - rows["rp"]
 
 
 def _neg_l1_chunks(q: torch.Tensor, rows: torch.Tensor, chunk: int) -> torch.Tensor:
-    """(B, n) = -||q[b] - rows[e]||_1, `chunk` rows at a time, each chunk
-    recomputed in the backward pass when autograd records."""
+    """(B, n) = -||q[b] - rows[e]||_1: K3 in one call for fp32 on the card;
+    otherwise `chunk` rows at a time, each chunk recomputed in the backward
+    pass when autograd records."""
+    if _on_k3(q, rows):
+        return l1_pool(q.contiguous(), rows.contiguous())
+
     def one(c):
         if torch.is_grad_enabled() and (q.requires_grad or c.requires_grad):
-            return checkpoint(_neg_l1_pool_chunk, q, c, use_reentrant=False)
-        return _neg_l1_pool_chunk(q, c)
+            return checkpoint(l1_pool_reference, q, c, use_reentrant=False)
+        return l1_pool_reference(q, c)
 
     return torch.cat([one(c) for c in torch.split(rows, chunk)], dim=1)
 
@@ -90,12 +106,19 @@ class TransE(KGEModel):
         mode 1: -||(es + rp) - e_k||; mode 0: -||e_k - (eo - rp)||. Both are
         distances between a (B, d) query and the pool.
         """
-        q = rows["es"] + rows["rp"] if mode == 1 else rows["eo"] - rows["rp"]
+        q = _pool_query(rows, mode)
         if not self.l1:
             qn = torch.sum(q * q, dim=-1, keepdim=True)
             pn = torch.sum(pool_rows * pool_rows, dim=-1)[None, :]
             return -(qn - 2.0 * self.mxu(q, pool_rows.T) + pn)
         return _neg_l1_chunks(q, pool_rows, POOL_CHUNK)
+
+    def score_pool_modes(self, rows, pool_rows, dense, modes):
+        """On K3's route, the modes' (B, d) queries stacked into one call."""
+        if not (self.l1 and len(modes) > 1 and _on_k3(rows["rp"], pool_rows)):
+            return super().score_pool_modes(rows, pool_rows, dense, modes)
+        q = torch.cat([_pool_query(rows, m) for m in modes])
+        return torch.split(_neg_l1_chunks(q, pool_rows, POOL_CHUNK), rows["rp"].shape[0])
 
     def score_all_o(self, params: Params, s, p):
         q = params["E"][s] + params["R"][p]

@@ -9,8 +9,9 @@ units exactly:
   equal lines;
 - the same argument errors, and the GPU by default;
 - each row's gradient scatters a step (`segment_sum`, `segment_outer_sum`,
-  the 16-byte path's widths) as `chip_smoke.py` phase 16 expects them on
-  the card.
+  the 16-byte path's widths) and TransE-L1's K3 calls (forwards, and a
+  gradient launch an input autograd asks for) as `chip_smoke.py` phase 16
+  expects them on the card.
 """
 
 import contextlib
@@ -25,6 +26,8 @@ import torch
 
 import skge_torch.ops.aggregate as aggregate
 from skge_torch import bench
+from skge_torch.models import transe
+from skge_torch.ops import cuda_l1
 from skge_torch.data import synthetic_kg
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -164,9 +167,26 @@ def test_gpu_is_the_default(monkeypatch):
 
 @pytest.mark.parametrize("row", bench.ALL_ROWS, ids=" ".join)
 def test_scatters_a_step_as_chip_smoke_expects(row, monkeypatch):
-    """The row's calls of both kernels' wrappers a step, counted on the
-    CPU (the plain versions run here), against phase 16's table."""
-    calls = {"segment_sum": 0, "segment_outer_sum": 0, chip_smoke.VECTOR: 0}
+    """The row's calls of the kernels' wrappers a step, counted on the
+    CPU (the plain versions run here; TransE's sweep routed as fp32 on the
+    card routes it, to a stand-in for K3 that counts as its wrapper does),
+    against phase 16's table."""
+    calls = {"segment_sum": 0, "segment_outer_sum": 0, chip_smoke.VECTOR: 0,
+             chip_smoke.L1: 0, chip_smoke.L1_GRAD: 0}
+
+    class CountedL1(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, p):
+            calls[chip_smoke.L1] += 1
+            ctx.save_for_backward(q, p)
+            return cuda_l1.l1_pool_reference(q, p)
+
+        @staticmethod
+        def backward(ctx, g):
+            q, p = ctx.saved_tensors
+            calls[chip_smoke.L1_GRAD] += sum(ctx.needs_input_grad)
+            dq, dp = cuda_l1.l1_pool_backward_reference(q, p, g)
+            return tuple(x if need else None for x, need in zip((dq, dp), ctx.needs_input_grad))
 
     def counted(name, fn):
         def wrapper(idx, grads, *rest):
@@ -180,6 +200,9 @@ def test_scatters_a_step_as_chip_smoke_expects(row, monkeypatch):
                         counted("segment_sum", aggregate.segment_sum))
     monkeypatch.setattr(aggregate, "segment_outer_sum",
                         counted("segment_outer_sum", aggregate.segment_outer_sum))
+    monkeypatch.setattr(transe, "_on_k3",
+                        lambda q, rows: q.dtype == rows.dtype == torch.float32)
+    monkeypatch.setattr(transe, "l1_pool", CountedL1.apply)
     run_main(bench, ["--all"] + TINY, [row], monkeypatch)
     steps = (1 + 2) * 2  # a warm-up and 2 timed epochs of 2 steps
     want = chip_smoke.bench_launches(" ".join(row), steps)
