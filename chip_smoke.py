@@ -376,6 +376,20 @@ Phases, each fatal:
    16f `python -m skge_torch.run_rescal` on FB15k's shape with the shared
       pool and the dense scatters, one epoch and its validation: 1 K2 and
       2 K1 a step.
+17. the shared-pool step as CUDA graphs (`training.PoolStepGraphs`, the
+   default of `make_pairwise_step` there) against the eager step
+   (`graphs=False`), from the same state and seed, under
+   `torch.use_deterministic_algorithms(True)`, each run with the launch
+   counts set to 0 just before it and held to their exact values after
+   (the graphed run's K1 eager, its K3 counted by the replays):
+   17a TransE-L1 at FB15k's shape (phase 4's path), 200 steps: tables,
+      accumulators and losses `torch.equal`, the step times of both; then
+      one epoch of each under the profiler, from the same state: the
+      graphed epoch's busy time (the union of its kernels' intervals)
+      within 10% of the eager epoch's, and K3's kernels among its kernels
+      by name;
+   17b HolE at WN18's shape on a shared pool of 1,024 (margin 0.2), 50
+      steps: the same, `torch.equal`.
 
 Prints one JSON line with the kernel table, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.
@@ -395,6 +409,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import shutil
 import statistics
@@ -439,7 +454,7 @@ from skge_torch.parallel import mesh as pmesh
 from skge_torch.parallel import partitioned as ppart
 from skge_torch.parallel import sharded as psh
 from skge_torch.parallel import shardmap_step as psm
-from skge_torch.training import regularized
+from skge_torch.training import PoolStepGraphs, regularized
 from skge_torch.utils.debug import assert_finite_state
 
 # the graphs the paths train on: FB15k's shape (DATA) and WN18's
@@ -731,6 +746,12 @@ DENSITY_POINT = ["--densities", "3.45", "--geometries", "translational",
                  "--epochs", "2", "--eval-every", "1"]
 RUN_RESCAL = ["--sampler", "shared", "--aggregate", "dense_pallas", "--ncomp", "100",
               "--me", "1", "--test-all", "1"]
+# phase 17: the shared-pool step as CUDA graphs against the eager step:
+# TransE-L1 as phase 4 runs it, 200 steps (2 epochs), and HolE at WN18's
+# shape on a pool of 1,024, 50 steps (one epoch of 50 batches of phase 4e's
+# 1,415 triples)
+GRAPHS = ((TRANSE, "fb15k", 200), (SimpleNamespace(**{**vars(HOLE), "sampler": "shared",
+                                                     "k": 1024}), "wn18", 50))
 
 
 def bench_launches(config: str, steps: int) -> dict:
@@ -4444,6 +4465,112 @@ def bench_phase(dev, launches, phase4_ms) -> dict:
     return {sub: b - a for sub, a, b in zip("abcdef", t, t[1:])}
 
 
+def _graphs_run(cfg, ds, dev, steps, graphs):
+    """`steps` steps of the path's pool step under deterministic
+    algorithms, graphed or eager, in epochs of at most 100 batches of phase
+    4's size. Returns (the step, its state, the losses, the launch counts,
+    seconds)."""
+    model = make_model(cfg, ds)
+    opt = AdaGrad(lr=cfg.lr)
+    step = make_pairwise_step(model, opt, make_sampler(cfg, ds, dev), margin=cfg.margin,
+                              aggregate="dense_pallas", graphs=graphs)
+    check(isinstance(step, PoolStepGraphs) == graphs, f"graphs={graphs}: the step's kind")
+    b = _batch_size(cfg, ds.train.shape[0])
+    nb = min(steps, cfg.nbatches)
+    xs = torch.as_tensor(ds.train[: nb * b] if nb < cfg.nbatches else ds.train,
+                         dtype=torch.int64, device=dev)
+    epoch = make_epoch_fn(step, xs.shape[0], nb)
+    state = init_state(model, opt, torch.Generator(device=dev).manual_seed(cfg.seed))
+    losses = []
+    reset_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    with deterministic():
+        for _ in range(steps // nb):
+            state, m = epoch(state, xs)
+            losses.append(m.loss)
+        _sync(dev)
+    dt = time.perf_counter() - t0
+    counts = {**read_counts(), "deterministic": cuda_segment.deterministic_launches,
+              "combine": cuda_segment.combine_launches}
+    return step, state, torch.cat(losses), counts, dt
+
+
+def _epoch_kernels(cfg, ds, dev, state, graphs, tag) -> tuple:
+    """One more epoch from a copy of `state` under the profiler, its step
+    graphed or eager (a graphed step warms up and captures first): (the
+    card's busy ms, the union of the intervals of its kernels, copies and
+    fills; their names)."""
+    state = state._replace(
+        params={k: v.clone() for k, v in state.params.items()},
+        opt_state={k: {s: v.clone() for s, v in sl.items()} for k, sl in state.opt_state.items()},
+        generator=torch.Generator(device=dev).manual_seed(cfg.seed))
+    model = make_model(cfg, ds)
+    step = make_pairwise_step(model, AdaGrad(lr=cfg.lr), make_sampler(cfg, ds, dev),
+                              margin=cfg.margin, aggregate="dense_pallas", graphs=graphs)
+    xs = torch.as_tensor(ds.train, dtype=torch.int64, device=dev)
+    epoch = make_epoch_fn(step, xs.shape[0], cfg.nbatches)
+    state, _ = epoch(state, xs)  # the warm-up and the capture
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    _sync(dev)
+    with torch.profiler.profile(activities=acts) as prof:
+        epoch(state, xs)
+        _sync(dev)
+    # the trace's kernels, copies and fills: its device events also hold the
+    # spans' annotations, which cover the gaps between their kernels
+    path = os.path.join(OUT, f"{tag}_{graphs}_trace.json")
+    os.makedirs(OUT, exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"
+                  and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    os.remove(path)
+    busy, end = 0.0, -math.inf  # the union of their intervals, us
+    for a, b in sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    log(f"[{tag}] {'graphed' if graphs else 'eager'} epoch under the profiler: "
+        f"{len(events)} device operations, busy {busy / 1e3:.3f} ms, their sum "
+        f"{sum(e.get('dur', 0) for e in events) / 1e3:.3f} ms")
+    return busy / 1e3, {e["name"] for e in events}
+
+
+def step_graphs(fb15k, wn18, dev, launches) -> None:
+    """Phase 17: the shared-pool step's CUDA graphs against the eager step."""
+    for (cfg, data, steps), tag in zip(GRAPHS, ("17a", "17b")):
+        ds = fb15k if data == "fb15k" else wn18
+        runs = {graphs: _graphs_run(cfg, ds, dev, steps, graphs) for graphs in (False, True)}
+        (_, eager, e_loss, e_counts, e_dt), (step, graphed, g_loss, g_counts, g_dt) = (
+            runs[False], runs[True])
+        log(f"[{tag}] {_label(cfg)} pool, {steps} steps under deterministic algorithms: "
+            f"eager {1e3 * e_dt / steps:.3f} ms a step, graphed {1e3 * g_dt / steps:.3f} "
+            f"ms a step ({e_dt / g_dt:.2f}x); launches eager {e_counts}, graphed {g_counts}")
+        check(sorted(step.graphs) == ["score", "update"], f"{tag}: the two graphs captured")
+        for name in eager.params:
+            check(torch.equal(graphed.params[name], eager.params[name]),
+                  f"{tag}: params[{name!r}] graphed equal to eager")
+            check(torch.equal(graphed.opt_state[name]["p2"], eager.opt_state[name]["p2"]),
+                  f"{tag}: p2[{name!r}] graphed equal to eager")
+        check(torch.equal(g_loss, e_loss), f"{tag}: the {steps} losses graphed equal to eager")
+        check(len(set(g_loss.tolist())) > 1, f"{tag}: each step's own loss")
+        want = {**(_transe_l1_pool(steps) if cfg.model == "transe"
+                   else _launches(steps, 0, steps)),
+                "deterministic": steps, "combine": steps}
+        for what, counts in (("eager", e_counts), ("graphed", g_counts)):
+            check(counts == want, f"{tag} {what}: launches {counts}, want {want}")
+        for name in launches:
+            launches[name] += e_counts[name] + g_counts[name]
+        if cfg.model == "transe":
+            e_ms, _ = _epoch_kernels(cfg, ds, dev, eager, False, tag)
+            g_ms, names = _epoch_kernels(cfg, ds, dev, eager, True, tag)
+            check(abs(g_ms - e_ms) <= 0.1 * e_ms,
+                  f"{tag}: the graphed epoch's busy time {g_ms:.3f} ms within 10% of "
+                  f"the eager epoch's {e_ms:.3f} ms")
+            check(any("l1_pool_forward_kernel" in n for n in names)
+                  and any("l1_pool_grad_kernel" in n for n in names),
+                  f"{tag}: K3's kernels among the graphed epoch's, by name")
+
+
 def main(argv) -> int:
     if argv not in ([], ["--kernel-times"]):
         print("usage: python3 chip_smoke.py [--kernel-times]", file=sys.stderr)
@@ -4534,6 +4661,8 @@ def main(argv) -> int:
     t_15 = flagship_phase(dev, launches)
     t_16s = time.perf_counter()
     t_16 = bench_phase(dev, launches, phase4_ms)
+    t_17s = time.perf_counter()
+    step_graphs(fb15k, wn18, dev, launches)
     t_end = time.perf_counter()
     log(f"[time] phases 1-2 {t_build - t0:.1f} s, 3 {t_kernels - t_build:.1f} s, "
         f"4 {t_train - t_kernels:.1f} s (graphs included), 5-6 {t_eval - t_train:.1f} s, "
@@ -4548,8 +4677,9 @@ def main(argv) -> int:
         f"14 {t_15s - t_13:.1f} s (" + ", ".join(f"14{sub} {s:.1f}" for sub, s in t_14.items())
         + f"), 15 {t_16s - t_15s:.1f} s ("
         + ", ".join(f"15{sub} {s:.1f}" for sub, s in t_15.items())
-        + f"), 16 {t_end - t_16s:.1f} s ("
-        + ", ".join(f"16{sub} {s:.1f}" for sub, s in t_16.items()) + ")")
+        + f"), 16 {t_17s - t_16s:.1f} s ("
+        + ", ".join(f"16{sub} {s:.1f}" for sub, s in t_16.items())
+        + f"), 17 {t_end - t_17s:.1f} s")
     # each kernel at the TransE or RESCAL slice's shape, its other timed
     # shapes under "shapes"
     log(json.dumps({"kernels": [{

@@ -76,7 +76,7 @@ class QuatE(KGEModel):
     def _unit(cls, r):
         a, b, c, d = cls._split(r)
         n = torch.sqrt(a * a + b * b + c * c + d * d)
-        n = torch.maximum(n, n.new_tensor(_EPS))
+        n = torch.maximum(n, n.new_full((), _EPS))  # on the card: no host copy
         return torch.cat([a / n, b / n, c / n, d / n], dim=-1)
 
     def score_from_rows(self, rows, dense):

@@ -60,7 +60,9 @@ def _neg_l1_chunks(q: torch.Tensor, rows: torch.Tensor, chunk: int) -> torch.Ten
 
     def one(c):
         if torch.is_grad_enabled() and (q.requires_grad or c.requires_grad):
-            return checkpoint(l1_pool_reference, q, c, use_reentrant=False)
+            # no RNG state to save: the sweep draws nothing
+            return checkpoint(l1_pool_reference, q, c, use_reentrant=False,
+                              preserve_rng_state=False)
         return l1_pool_reference(q, c)
 
     return torch.cat([one(c) for c in torch.split(rows, chunk)], dim=1)

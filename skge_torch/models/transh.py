@@ -28,7 +28,7 @@ _EPS = 1e-12
 
 def _unit(w: torch.Tensor) -> torch.Tensor:
     n = torch.sqrt(torch.sum(w * w, dim=-1, keepdim=True))
-    return w / torch.maximum(n, n.new_tensor(_EPS))
+    return w / torch.maximum(n, n.new_full((), _EPS))  # on the card: no host copy
 
 
 def _proj(e: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -51,8 +51,10 @@ def _chunked(body, cand: torch.Tensor, chunk: int, *args):
     candidates."""
     grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (cand, *args))
-    per = [checkpoint(body, c, *args, use_reentrant=False) if grad else body(c, *args)
-           for c in torch.split(cand, chunk)]
+    # the bodies draw nothing: no RNG state to save (saving it reads the
+    # card's generator, which a CUDA graph capture forbids)
+    per = [checkpoint(body, c, *args, use_reentrant=False, preserve_rng_state=False)
+           if grad else body(c, *args) for c in torch.split(cand, chunk)]
     return tuple(torch.cat(outs, dim=1) for outs in zip(*per))
 
 

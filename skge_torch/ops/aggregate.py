@@ -15,6 +15,7 @@ optimizer leaves them untouched.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import torch
@@ -72,7 +73,7 @@ def _bmask(mask: torch.Tensor, ndim: int) -> torch.Tensor:
 
 # flattened feature width above which segment_mean_dense scatters grads and
 # counts separately instead of through the fused count channel
-_WIDE_ROW_THRESHOLD = 4096
+WIDE_ROW = 4096
 
 
 def segment_mean_unique(
@@ -142,32 +143,45 @@ def segment_mean_dense(
 
     Gradients and occurrence counts go through ONE scatter, the counts
     riding as an extra trailing channel, padded with zero columns to a
-    multiple of 4. Rows at least `_WIDE_ROW_THRESHOLD`
-    wide scatter gradients and counts separately instead: the fused channel
-    would copy the whole (T, F) block to add one column.
+    multiple of 4 (`count_channel`, then `mean_of_channels`). Rows at
+    least `WIDE_ROW` wide scatter gradients and counts separately instead:
+    the fused channel would copy the whole (T, F) block to add one column.
 
     The JAX package picks among three scatters here (XLA, its Pallas
     kernel, a sorted one-hot matmul); on Hopper all of them are the kernel
     `segment_sum`.
     """
+    feat_shape = grads.shape[1:]
+    if feat_shape.numel() < WIDE_ROW:
+        table = segment_sum(indices, count_channel(grads, mask, premasked), num_rows)
+        return mean_of_channels(table, feat_shape)
     m = mask.to(grads.dtype)
     g = grads if premasked else grads * _bmask(m, grads.ndim)
-    t = indices.shape[0]
-    feat_shape = grads.shape[1:]
-    flat = g.reshape(t, -1)
-    if flat.shape[1] >= _WIDE_ROW_THRESHOLD:
-        gsum = segment_sum(indices, flat.contiguous(), num_rows).reshape(
-            (num_rows,) + feat_shape
-        )
-        count = segment_sum(indices, m[:, None].contiguous(), num_rows)[:, 0]
-    else:
-        # the count channel, then zeros up to a multiple of 4 columns: the
-        # kernel's 16-byte path (152 for TransE's 150, 104 for RESCAL's 100)
-        f = flat.shape[1]
-        pad = flat.new_zeros((t, -(f + 1) % 4))
-        aug = torch.cat([flat, m[:, None], pad], dim=1)
-        table = segment_sum(indices, aug, num_rows)
-        count = table[:, f]
-        gsum = table[:, :f].reshape((num_rows,) + feat_shape)
+    gsum = segment_sum(indices, g.reshape(indices.shape[0], -1).contiguous(),
+                       num_rows).reshape((num_rows,) + feat_shape)
+    count = segment_sum(indices, m[:, None].contiguous(), num_rows)[:, 0]
+    gavg = gsum / _bmask(torch.clamp(count, min=1.0), gsum.ndim)
+    return DenseGrads(grads=gavg, count=count)
+
+
+def count_channel(grads: torch.Tensor, mask: torch.Tensor,
+                  premasked: bool = False) -> torch.Tensor:
+    """The (T, F + 1 + pad) block `segment_mean_dense` scatters for rows
+    narrower than `WIDE_ROW`: the (mask-weighted) gradients flattened, the
+    count channel, then zeros up to a multiple of 4 columns, the kernel's
+    16-byte path (152 for TransE's 150, 104 for RESCAL's 100)."""
+    m = mask.to(grads.dtype)
+    g = grads if premasked else grads * _bmask(m, grads.ndim)
+    flat = g.reshape(grads.shape[0], -1)
+    pad = flat.new_zeros((flat.shape[0], -(flat.shape[1] + 1) % 4))
+    return torch.cat([flat, m[:, None], pad], dim=1)
+
+
+def mean_of_channels(table: torch.Tensor, feat_shape) -> DenseGrads:
+    """The averaged gradients and counts of a `count_channel` block's
+    scatter (num_rows, F + 1 + pad), rows of `feat_shape`."""
+    f = math.prod(feat_shape)
+    count = table[:, f]
+    gsum = table[:, :f].reshape((table.shape[0],) + tuple(feat_shape))
     gavg = gsum / _bmask(torch.clamp(count, min=1.0), gsum.ndim)
     return DenseGrads(grads=gavg, count=count)

@@ -300,8 +300,10 @@ class OutOfCoreTrainer:
                 step = make_selfadv_step(bucket_model, opt, sampler, self.margin,
                                          self.adv_alpha, agg)
             elif self.pairwise:
+                # eager: a bucket's returned tables stay cached across the
+                # next buckets' steps, which a graphed step would overwrite
                 step = make_pairwise_step(bucket_model, opt, sampler, self.margin,
-                                          aggregate=agg)
+                                          aggregate=agg, graphs=False)
             else:
                 step = make_pointwise_step(bucket_model, opt, sampler, agg)
             nb = max(1, min(self.nbatches, self.bucket_len))

@@ -50,13 +50,18 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from skge_torch.models.base import ACTIVATIONS, KGEModel, Params, acc_dtype
+from skge_torch.ops import cuda_l1, cuda_outer, cuda_segment, grouping
 from skge_torch.ops.aggregate import (
+    WIDE_ROW,
     DenseGrads,
     FactoredOcc,
+    count_channel,
+    mean_of_channels,
     segment_mean_dense,
     segment_mean_unique,
     segment_outer_mean_dense,
 )
+from skge_torch.ops.cuda_segment import segment_sum
 from skge_torch.optim import POST_CONSTRAINTS, Optimizer, OptState
 from skge_torch.utils.metrics import span
 
@@ -768,6 +773,73 @@ def regularized(model: KGEModel, pname: str, grads: torch.Tensor,
 _DENSE_MODES = ("dense", "dense_pallas", "dense_sorted")
 
 
+def _summed(grads: torch.Tensor, count: torch.Tensor, combine: str) -> torch.Tensor:
+    """Averaged rows as they are (`combine="mean"`), or multiplied back by
+    their counts (`"sum"`)."""
+    if combine == "mean":
+        return grads
+    return grads * count.reshape((-1,) + (1,) * (grads.dim() - 1))
+
+
+def _grouped(model: KGEModel, occ):
+    """[(tables, ids, grads, counts, rows)]: the tables of `occ` other than
+    a `FactoredOcc`'s, grouped by feature shape, each group's occurrences
+    offset into one stacked table of `rows` rows."""
+    groups: dict = {}
+    for pname, o in occ.items():
+        if not isinstance(o, FactoredOcc):
+            groups.setdefault(o[1].shape[1:], []).append(pname)
+    out = []
+    for names in groups.values():
+        offsets, total = {}, 0
+        for pname in names:
+            offsets[pname] = total
+            total += model.num_rows(pname)
+        out.append((tuple(names), torch.cat([occ[p][0] + offsets[p] for p in names]),
+                    torch.cat([occ[p][1] for p in names]),
+                    torch.cat([occ[p][2] for p in names]), total))
+    return out
+
+
+def _dense_aggregate(model: KGEModel, occ, premasked: bool):
+    """The dense modes' scatters: [(tables, DenseGrads)], one entry a
+    scatter. A `FactoredOcc` table takes `segment_outer_mean_dense` alone;
+    each `_grouped` group takes one `segment_mean_dense` (TransE's E and R:
+    one `segment_sum` a step)."""
+    units = [((pname,), segment_outer_mean_dense(o, model.num_rows(pname)))
+             for pname, o in occ.items() if isinstance(o, FactoredOcc)]
+    for names, cidx, cg, cm, total in _grouped(model, occ):
+        units.append((names, segment_mean_dense(cidx, cg, cm, total, premasked)))
+    return units
+
+
+def _dense_update(model: KGEModel, opt: Optimizer, params: Params,
+                  opt_state: OptState, units, g_dense: Params,
+                  step: Optional[int], combine: str) -> Tuple[Params, OptState]:
+    """The dense modes' updates: each table of each `_dense_aggregate` unit
+    (a stacked group split back by rows) through `regularized` and
+    `apply_dense_masked`, then each dense param through `apply_full`.
+    Returns new dicts; the inputs are left as they were."""
+    params, opt_state = dict(params), dict(opt_state)
+    for names, dg in units:
+        lo = 0
+        for pname in names:
+            hi = lo + model.num_rows(pname)
+            count = dg.count[lo:hi]
+            grads = regularized(model, pname, _summed(dg.grads[lo:hi], count, combine),
+                                params[pname])
+            params[pname], opt_state[pname] = opt.apply_dense_masked(
+                params[pname], opt_state[pname], DenseGrads(grads=grads, count=count),
+                model.post_constraints.get(pname), step=step,
+            )
+            lo = hi
+    for pname, g in g_dense.items():
+        params[pname], opt_state[pname] = opt.apply_full(
+            params[pname], opt_state[pname], g, step=step
+        )
+    return params, opt_state
+
+
 def apply_gradients(
     model: KGEModel,
     opt: Optimizer,
@@ -786,7 +858,8 @@ def apply_gradients(
     through the CUDA kernels: `segment_sum`, and `segment_outer_sum` for a
     `FactoredOcc` (RESCAL's W). Row params with the same feature shape
     (TransE's E and R) share ONE scatter into a stacked table, split after,
-    so a TransE step launches `segment_sum` once. Under 'unique' a
+    so a TransE step launches `segment_sum` once (`_dense_aggregate`, then
+    `_dense_update`). Under 'unique' a
     `FactoredOcc`'s outer products are materialized batch-locally, as in
     the JAX package. `rparam` adds `rparam * row`, and `n3` adds
     `3 * n3 * model.n3_grad_rows(row)`, to the averaged gradient of each
@@ -802,66 +875,28 @@ def apply_gradients(
         raise ValueError(f"unknown aggregate mode {aggregate!r}")
     if combine not in ("mean", "sum"):
         raise ValueError(f"unknown combine {combine!r}")
+    if aggregate in _DENSE_MODES:
+        with span("skge_torch.train.aggregate"):
+            units = _dense_aggregate(model, occ, premasked)
+        with span("skge_torch.train.update"):
+            return _dense_update(model, opt, params, opt_state, units, g_dense, step,
+                                 combine)
     params = dict(params)
     opt_state = dict(opt_state)
-
-    def summed(grads, count):
-        if combine == "mean":
-            return grads
-        return grads * count.reshape((-1,) + (1,) * (grads.dim() - 1))
-
-    def apply_dense_grads(pname, dg: DenseGrads):
+    for pname, f in list(occ.items()):
+        if isinstance(f, FactoredOcc):
+            outers = sum(u[:, :, None] * v[:, None, :] for u, v in zip(f.us, f.vs))
+            occ = {**occ, pname: (f.idx, outers, f.count)}
+    for pname, (idx, g, m) in occ.items():
+        with span("skge_torch.train.aggregate"):
+            ug = segment_mean_unique(idx, g, m, model.num_rows(pname), premasked)
         with span("skge_torch.train.update"):
-            dg = dg._replace(grads=regularized(
-                model, pname, summed(dg.grads, dg.count), params[pname]))
-            params[pname], opt_state[pname] = opt.apply_dense_masked(
-                params[pname], opt_state[pname], dg,
+            ug = ug._replace(grads=regularized(
+                model, pname, _summed(ug.grads, ug.count, combine), params[pname][ug.uidx]))
+            params[pname], opt_state[pname] = opt.apply_unique(
+                params[pname], opt_state[pname], ug,
                 model.post_constraints.get(pname), step=step,
             )
-
-    factored = {p: f for p, f in occ.items() if isinstance(f, FactoredOcc)}
-    occ = {p: o for p, o in occ.items() if p not in factored}
-    for pname, f in factored.items():
-        if aggregate in _DENSE_MODES:
-            with span("skge_torch.train.aggregate"):
-                dg = segment_outer_mean_dense(f, model.num_rows(pname))
-            apply_dense_grads(pname, dg)
-        else:
-            outers = sum(u[:, :, None] * v[:, None, :] for u, v in zip(f.us, f.vs))
-            occ[pname] = (f.idx, outers, f.count)
-
-    if aggregate == "unique":
-        for pname, (idx, g, m) in occ.items():
-            with span("skge_torch.train.aggregate"):
-                ug = segment_mean_unique(idx, g, m, model.num_rows(pname), premasked)
-            with span("skge_torch.train.update"):
-                ug = ug._replace(grads=regularized(
-                    model, pname, summed(ug.grads, ug.count), params[pname][ug.uidx]))
-                params[pname], opt_state[pname] = opt.apply_unique(
-                    params[pname], opt_state[pname], ug,
-                    model.post_constraints.get(pname), step=step,
-                )
-    else:
-        groups: dict = {}
-        for pname in occ:
-            groups.setdefault(occ[pname][1].shape[1:], []).append(pname)
-        for names in groups.values():
-            offsets, total = {}, 0
-            for pname in names:
-                offsets[pname] = total
-                total += model.num_rows(pname)
-            with span("skge_torch.train.aggregate"):
-                cidx = torch.cat([occ[p][0] + offsets[p] for p in names])
-                cg = torch.cat([occ[p][1] for p in names])
-                cm = torch.cat([occ[p][2] for p in names])
-                dg_all = segment_mean_dense(cidx, cg, cm, total, premasked)
-            for pname in names:
-                lo = offsets[pname]
-                hi = lo + model.num_rows(pname)
-                apply_dense_grads(
-                    pname,
-                    DenseGrads(grads=dg_all.grads[lo:hi], count=dg_all.count[lo:hi]),
-                )
     for pname, g in g_dense.items():
         with span("skge_torch.train.update"):
             params[pname], opt_state[pname] = opt.apply_full(
@@ -955,6 +990,7 @@ def make_pairwise_step(
     margin: float,
     aggregate: str = "unique",
     fused: bool = True,
+    graphs: bool = True,
 ):
     """One pairwise step: sample negatives, rank, update on violations.
 
@@ -970,6 +1006,13 @@ def make_pairwise_step(
     for the first `rows` rows only, as for the unpadded batch. Every step
     factory of this module takes `rows`; the shared pool's draw does not
     depend on the batch.
+
+    Where `graphs_eligible` holds (the shared-pool path on a dense
+    aggregate mode, an optimizer without a schedule), the step is a
+    `PoolStepGraphs`: on the card it replays CUDA graphs from its second
+    call on, and the state it returns holds its own buffers, which its
+    next call updates in place. A caller that keeps a returned state
+    across later steps clones it. `graphs=False` keeps the eager step.
     """
     if fused and hasattr(sampler, "pool"):
         shared_fn = select_shared_pairwise_fn(model)
@@ -1008,7 +1051,204 @@ def make_pairwise_step(
         new_state = TrainState(params, opt_state, state.generator, state.step + 1)
         return new_state, StepMetrics(loss=loss, nviolations=nviol)
 
+    if graphs and graphs_eligible(model, opt, sampler, aggregate, fused):
+        return PoolStepGraphs(model, opt, sampler, margin, step)
     return step
+
+
+def graphs_eligible(model: KGEModel, opt: Optimizer, sampler, aggregate: str,
+                    fused: bool = True) -> bool:
+    """Whether `make_pairwise_step` gives a `PoolStepGraphs`: the
+    shared-pool path (`fused`, a `pool`-protocol sampler) through autograd
+    (not RESCAL's factored gradients) on a dense aggregate mode, with an
+    optimizer without a schedule (its lr is then a constant of the graph).
+    The graphs themselves run on the card only, and for tables narrower
+    than `WIDE_ROW`."""
+    return (fused and hasattr(sampler, "pool") and aggregate in _DENSE_MODES
+            and opt.schedule is None
+            and select_shared_pairwise_fn(model) is pairwise_grads_shared)
+
+
+# the kernels' launch counters: a capture counts the launches it records
+# and takes them back; each replay adds them
+_COUNTERS = tuple((mod, name) for mod, names in (
+    (cuda_l1, ("launches", "backward_launches")),
+    (cuda_segment, ("launches", "vector_launches", "deterministic_launches",
+                    "combine_launches")),
+    (cuda_outer, ("launches",)),
+    (grouping, ("launches",)),
+) for name in names)
+
+
+def _counts() -> list:
+    return [getattr(mod, name) for mod, name in _COUNTERS]
+
+
+def _add_counts(delta) -> None:
+    for (mod, name), d in zip(_COUNTERS, delta):
+        setattr(mod, name, getattr(mod, name) + d)
+
+
+class PoolStepGraphs:
+    """The shared-pool pairwise step as CUDA graph replays, one a layer, so
+    that the host enqueues a few copies, replays and K1 instead of the
+    eager step's ~130 kernels:
+
+    - sample: eager, `sampler.pool` on the state's generator, so the draws
+      are the eager step's and no graph holds a generator;
+    - score: one graph over static inputs (the batch, mask and pool are
+      copied in): `pairwise_grads_shared`, forward and backward, then each
+      `_grouped` group's ids and `count_channel` block;
+    - aggregate: eager, `segment_sum` of each group, called from Python on
+      a copy of the step's ids, as the eager step calls it;
+    - update: one graph over the sums copied in: `mean_of_channels` and
+      `_dense_update`, its results written into the static tables and
+      accumulators.
+
+    The first call on the card runs the eager step: the warm-up (kernels
+    built, libraries and autograd initialised). The second captures each
+    graph before its first replay; later calls replay. A call off the card,
+    with tables of rows at least `WIDE_ROW` wide, or whose batch, mask or
+    tables do not fit the captured ones, runs the eager step. The launch
+    counters of the kernels count the replays' launches.
+
+    The incoming state's tensors are copied into the static buffers unless
+    they are those buffers, and the returned state holds the buffers
+    themselves: the next call updates them in place, so a state kept across
+    later steps changes with them. Each step's `StepMetrics` are its own
+    tensors.
+
+    `capture=False` runs the same pieces directly instead of capturing and
+    replaying them, on any device.
+    """
+
+    def __init__(self, model: KGEModel, opt: Optimizer, sampler, margin: float,
+                 eager: Callable, capture: bool = True):
+        self.model, self.opt, self.sampler, self.margin = model, opt, sampler, margin
+        self.eager, self.capture = eager, capture
+        self.warm = False
+        self.params = self.opt_state = self.sums = None  # bound at the first replay
+        self.graphs: dict = {}  # piece -> (CUDAGraph, launches a replay)
+
+    def __call__(self, state: TrainState, batch: torch.Tensor, mask: torch.Tensor,
+                 rows: Optional[int] = None):
+        if (self.capture and not batch.is_cuda) or not self._fits(state, batch, mask):
+            return self.eager(state, batch, mask, rows)
+        if not self.warm:
+            self.warm = True
+            return self.eager(state, batch, mask, rows)
+        with span("skge_torch.train.step"):
+            with span("skge_torch.train.sample"):
+                pool_idx = self.sampler.pool(state.generator, batch, mask)
+            with span("skge_torch.train.score"):
+                self._load(state, batch, mask, pool_idx)
+                self._run("score", self._score)
+            with span("skge_torch.train.aggregate"):
+                sums = [segment_sum(cidx.clone(), block, num_rows)
+                        for _, cidx, block, num_rows, _ in self.groups]
+            with span("skge_torch.train.update"):
+                self._load_sums(sums)
+                self._run("update", self._update)
+        new_state = TrainState(dict(self.params),
+                               {k: dict(v) for k, v in self.opt_state.items()},
+                               state.generator, state.step + 1)
+        return new_state, StepMetrics(loss=self.loss.clone(),
+                                      nviolations=self.nviol.clone())
+
+    def _fits(self, state: TrainState, batch: torch.Tensor, mask: torch.Tensor) -> bool:
+        """Whether the call's tensors match the static buffers; before they
+        are bound, whether the slots' tables are narrower than `WIDE_ROW`."""
+        if self.params is None:
+            return all(state.params[p].shape[1:].numel() < WIDE_ROW
+                       for _, p, _ in self.model.slot_spec())
+        if state.params.keys() != self.params.keys():
+            return False
+        pairs = [(batch, self.batch), (mask, self.mask)]
+        for k, v in state.params.items():
+            pairs.append((v, self.params[k]))
+            slots = state.opt_state.get(k, {})
+            if slots.keys() != self.opt_state[k].keys():
+                return False
+            pairs += [(x, self.opt_state[k][s]) for s, x in slots.items()]
+        return all(x is y or (x.shape == y.shape and x.dtype == y.dtype
+                              and x.device == y.device) for x, y in pairs)
+
+    def _load(self, state: TrainState, batch, mask, pool_idx) -> None:
+        """The step's inputs into the static buffers (bound, as copies, on
+        the first call)."""
+        if self.params is None:
+            self.params = {k: v.clone() for k, v in state.params.items()}
+            self.opt_state = {k: {s: v.clone() for s, v in slots.items()}
+                              for k, slots in state.opt_state.items()}
+            self.batch, self.mask, self.pool = batch.clone(), mask.clone(), pool_idx.clone()
+            return
+        if pool_idx.shape != self.pool.shape:
+            raise ValueError(f"a pool of {tuple(pool_idx.shape)} after one of "
+                             f"{tuple(self.pool.shape)}: make the step with graphs=False")
+        self.batch.copy_(batch)
+        self.mask.copy_(mask)
+        self.pool.copy_(pool_idx)
+        self._store(state.params, state.opt_state)
+
+    def _store(self, params: Params, opt_state: OptState) -> None:
+        """Tables and accumulators into the static buffers, each that is
+        not already its buffer."""
+        for k, v in params.items():
+            if v is not self.params[k]:
+                self.params[k].copy_(v)
+            for s, x in opt_state[k].items():
+                if x is not self.opt_state[k][s]:
+                    self.opt_state[k][s].copy_(x)
+
+    def _load_sums(self, sums) -> None:
+        """The aggregate's sums into the update's static inputs."""
+        if self.sums is None:
+            self.sums = [t.clone() for t in sums]
+            return
+        for mine, t in zip(self.sums, sums):
+            mine.copy_(t)
+
+    def _score(self) -> None:
+        self.loss, self.nviol, occ, self.g_dense = pairwise_grads_shared(
+            self.model, self.params, self.batch, self.pool, self.mask, self.margin,
+            modes=self.sampler.modes)
+        self.groups = [(names, cidx, count_channel(cg, cm, premasked=True), num_rows,
+                        cg.shape[1:])
+                       for names, cidx, cg, cm, num_rows in _grouped(self.model, occ)]
+
+    def _update(self) -> None:
+        units = [(names, mean_of_channels(table, feat_shape))
+                 for (names, *_, feat_shape), table in zip(self.groups, self.sums)]
+        self._store(*_dense_update(self.model, self.opt, self.params, self.opt_state,
+                                   units, self.g_dense, None, "mean"))
+
+    def _run(self, name: str, piece: Callable) -> None:
+        """Replay the piece's graph, captured at its first run; or, without
+        `capture`, run the piece."""
+        if not self.capture:
+            piece()
+            return
+        if name not in self.graphs:
+            self.graphs[name] = self._captured(name, piece)
+        graph, launched = self.graphs[name]
+        graph.replay()
+        _add_counts(launched)
+
+    def _captured(self, name: str, piece: Callable):
+        """(graph, launches a replay) of `piece`, captured in the memory
+        pool of the graphs before it (they replay in capture order)."""
+        before = _counts()
+        graph = torch.cuda.CUDAGraph()
+        pool = next(iter(self.graphs.values()))[0].pool() if self.graphs else None
+        try:
+            with torch.cuda.graph(graph, pool=pool):
+                piece()
+        except RuntimeError as e:
+            raise RuntimeError(f"the step's {name} could not be captured as a CUDA "
+                               "graph; make the step with graphs=False") from e
+        launched = [b - a for a, b in zip(before, _counts())]
+        _add_counts([-n for n in launched])  # recorded, not launched
+        return graph, launched
 
 
 def make_pointwise_step(
