@@ -85,6 +85,14 @@ Phases, each fatal:
    (forward and backward) beside the chunked sweep it replaced, and at the
    second (forward) beside the chunked forward, `-torch.cdist(q, p, p=1)`
    as the library at both;
+   the serving filter (`filter_known`, which replaces no TPU kernel) at the
+   serve cell's shape (four batches of 1,024 Zipf queries from
+   `kgebench.gen`'s laws against FB15k's 14,951 entities, filtered by its
+   483,142 triples, both directions): each tile bit-equal to the plain
+   version's on the host, the card's masked-cell counter equal to its pair
+   count, one launch a batch; timed at one batch beside the plain version
+   on the card and the mask it replaced (a bool mask of the pairs,
+   `index_fill_`, `masked_fill_`);
 4. training, each path with the launch counts set to 0 just before it and
    read just after, exact launch counts (every gradient scatter on K1's
    16-byte path; K3's forward and two gradients a TransE-L1 pool step, and
@@ -198,11 +206,14 @@ Phases, each fatal:
    10g serving on 10a's params on `python -m skge_torch.serving_bench`'s
       query stream and timing at its defaults (59,071 queries, batch
       1,024, k=10, filtered by the train triples):
-      `LinkPredictor` exact (queries/s, busy time a batch, its first 1,024
-      queries held to the CPU engine), int8, fp8 and bfloat16 (queries/s,
-      top-10 overlap), `StreamedLinkPredictor` in 4 chunks of 4,096 from
-      pinned memory (held to the in-core engine, bytes a batch); then the
-      serving bench's `main()` at its defaults, its JSON line;
+      `LinkPredictor` exact (queries/s, busy time a batch, its first
+      1,024 queries held to the CPU engine), int8, fp8 and bfloat16
+      (queries/s, top-10 overlap), `StreamedLinkPredictor` in 4 chunks of
+      4,096 from pinned memory (held to the in-core engine, bytes a
+      batch); then the serving bench's `main()` at its defaults, its JSON
+      line; each path with the launch counts set to 0 just before it and
+      held to one `filter_known` launch and one K3 forward a score tile
+      (a batch, or a batch's chunk when streamed);
    10h the JAX package's out-of-core learning gates on the card.
 11. the partitioned trainer at P=1, in this process over an NCCL group of
    one made from a file store under build/chip_smoke/ (destroyed at the
@@ -265,9 +276,10 @@ Phases, each fatal:
       the same violations, params within 1e-5;
    12d `LinkPredictor(mesh=)` against `LinkPredictor()` on 12a's params,
       1,024 queries at `scripts/serving_bench.py`'s defaults, exact and
-      int8: the same top-10 ids and values; `FilteredRankingEval(mesh=)`
-      against the unsharded ranking of 1,000 test triples by the 1e-5 gap
-      rule;
+      int8: the same top-10 ids and values, each engine held to one
+      `filter_known` launch and one K3 forward a batch;
+      `FilteredRankingEval(mesh=)` against the unsharded ranking of 1,000
+      test triples by the 1e-5 gap rule;
    12e `python -m skge_torch.scaling_bench` at its defaults (TransE ncomp
       64, 20,000 entities, a batch of 2,048 a device, 4 random-mode
       negatives a mode, 20 steps): its N=1 worker in this process on the
@@ -300,7 +312,8 @@ Phases, each fatal:
       over HolE at WN18's shape: step or batch times, the largest score
       gap to fp32 beside the JAX package's bound (0.03, checked for HolE),
       the card's bf16 scores within 1e-4 of the CPU's bf16 path, top-10
-      overlap; params and accumulators stay fp32.
+      overlap, one `filter_known` launch a serving batch; params and
+      accumulators stay fp32.
 14. the quality suite (`python -m skge_torch.quality_suite`) on its default
    latent KG, WN18's shape (40,943 entities, 18 relations, 141,442
    triples, 100 batches of 1,415), each run with the launch counts set to
@@ -398,9 +411,10 @@ its last line {"ok": true, "device": {...}}.
 
 `--kernel-times` runs phases 1-2 and phase 3's timings alone, on the same
 inputs and without the checks, and prints no result line. Copied into an
-older tree of the repository that has `skge_torch/ops/grouping.py` and
-`skge_torch/ops/cuda_l1.py` and run there, it times that tree's kernels at
-this tree's shapes: parent against change on one card.
+older tree of the repository that has `skge_torch/ops/grouping.py`,
+`skge_torch/ops/cuda_l1.py` and `skge_torch/ops/cuda_filter.py` and run
+there, it times that tree's kernels at this tree's shapes: parent against
+change on one card.
 """
 
 from __future__ import annotations
@@ -419,6 +433,7 @@ import time
 import timeit
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -438,8 +453,8 @@ from skge_torch import (ERMLP, MODELS, RESCAL, AdaGrad, Adam, BernoulliSampler,
                         TransE, init_state, load_checkpoint, make_ce_step,
                         make_epoch_fn, make_pairwise_step, make_pointwise_step,
                         make_sampled_ce_step, make_selfadv_step, triple_classification)
-from skge_torch.data import (add_reciprocal_relations, bernoulli_probs, rows_with_keys,
-                             latent_assign, latent_kg, latent_queries,
+from skge_torch.data import (add_reciprocal_relations, bernoulli_probs, known_csr,
+                             rows_with_keys, latent_assign, latent_kg, latent_queries,
                              latent_scores, latent_tables, sorted_train_keys,
                              synthetic_kg, type_index_arrays, unigram_logits)
 from skge_torch.evaluation import classification_negatives
@@ -447,7 +462,7 @@ from skge_torch.experiment import Experiment, make_parser
 from skge_torch.models import RotatE, conve, transe
 from skge_torch.models.base import ACTIVATIONS
 from skge_torch.optim import EPS
-from skge_torch.ops import _build, cuda_l1, cuda_outer, cuda_segment, grouping
+from skge_torch.ops import _build, cuda_filter, cuda_l1, cuda_outer, cuda_segment, grouping
 from skge_torch.outofcore import BucketPoolSampler, make_bucket_epoch
 from skge_torch.parallel import distributed as pdist
 from skge_torch.parallel import mesh as pmesh
@@ -508,8 +523,9 @@ KERNELS = {  # name: (wrapper module, source, the TPU kernel it replaces)
 }
 # built beside the kernels: the grouping by row that K1's deterministic
 # variant and K2 run first (ops/grouping.py), and K3, the TransE-L1 pool
-# sweep (ops/cuda_l1.py), which replaces no TPU kernel
-SOURCES = (*KERNELS, "group_by_row", "l1_pool")
+# sweep (ops/cuda_l1.py), and the serving filter (ops/cuda_filter.py), which
+# replace no TPU kernel
+SOURCES = (*KERNELS, "group_by_row", "l1_pool", "filter_known")
 RTOL = ATOL = 1e-5  # segment_sum: fp32 sums in atomic order, as in tests/test_pallas.py
 # rows of more occurrences than this (only phase 3's two hot-row cases, of
 # 5,344 and 10,688) are held to the fp64 sum within their fp32 summation
@@ -523,6 +539,7 @@ FP32_FLOP_PER_S = 67e12
 VECTOR = "segment_sum 16-byte path"  # the launch count of K1's float4 path
 L1 = "l1_pool"  # K3's forward launches
 L1_GRAD = "l1_pool gradient"  # K3's gradient launches (dq and dp each one)
+FILTER = "filter_known"  # the serving filter's launches (one a score tile)
 # phase 3: K1's deterministic variant checked at these cases (7f's E and W
 # counts, 15a's and 15b's step, full-rank TransR's M, a hot row and all of
 # T on one row at RESCAL's E, the edge shapes) and timed at DET_TIMED
@@ -810,7 +827,7 @@ def build() -> None:
         for line in (out or "").splitlines():
             if "registers" in line or "spill" in line:
                 log("    ptxas:", line.strip())
-    for mod in (*(mod for mod, _, _ in KERNELS.values()), grouping, cuda_l1):
+    for mod in (*(mod for mod, _, _ in KERNELS.values()), grouping, cuda_l1, cuda_filter):
         mod._lib()  # loads, binds the C interface
 
 
@@ -1413,6 +1430,78 @@ def l1_pool_checks(dev, verify=True) -> tuple[float, list]:
     return worst, shapes
 
 
+def _old_mask(scores, rows, cols):
+    """The serving mask `filter_known` replaced, given the batch's (row,
+    entity) pairs on the card: a bool mask of the pairs by `index_fill_`,
+    then `masked_fill_` of the tile."""
+    b, c = scores.shape
+    mask = torch.zeros((b + 1) * (c + 1), dtype=torch.bool, device=scores.device)
+    mask.index_fill_(0, rows * (c + 1) + cols, True)
+    scores.masked_fill_(mask.view(b + 1, c + 1)[:b, :c], cuda_filter.NEG_INF)
+
+
+def filter_known_checks(dev, verify=True) -> tuple[float, list]:
+    """The serving filter at the serve cell's shape (`verify`): four
+    batches of 1,024 queries drawn from `kgebench.gen`'s Zipf laws of
+    transe_l1_fb15k against its 14,951 entities, filtered by its 483,142
+    triples, in both directions: each tile bit-equal to
+    `filter_known_reference`'s on the host, the card's masked-cell counter
+    equal to its pair count, one launch a batch. Timed at one batch beside
+    the plain version on the card and the mask it replaced (`_old_mask`,
+    its pairs given). Returns (0.0, the tiles being exact; [timed shape]).
+    Bytes: 16 a query (its ids), 8 a step of its key's binary search, 16
+    a found key's offsets, 4 an answer read and 4 a cell written."""
+    from kgebench import gen
+
+    cfg = json.loads((Path(__file__).resolve().parent / "kgebench" / "configs"
+                      / "transe_l1_fb15k.json").read_text())
+    seed, b, n_e, n_r = 2_654_435_761, SERVE.batch, cfg["entities"], cfg["relations"]
+    known, queries = gen.kg(cfg, seed), gen.queries(cfg, seed, 4 * b)
+    gen_t = torch.Generator().manual_seed(5)
+    for direction in ("o", "s") if verify else ():
+        host = [torch.from_numpy(a) for a in known_csr(known, n_r, direction)]
+        index = [a.to(dev) for a in host]
+        for lo in range(0, len(queries), b):
+            q = torch.as_tensor(queries[lo:lo + b])
+            scores = torch.randn(len(q), n_e, generator=gen_t)
+            want = scores.clone()
+            cuda_filter.filter_known_reference(want, q[:, 0], q[:, 1], *host, 0, n_r)
+            rows, _ = cuda_filter.known_pairs_reference(q[:, 0], q[:, 1], *host, 0, n_e, n_r)
+            got, qd = scores.to(dev), q.to(dev)
+            before = (cuda_filter.launches, cuda_filter.masked_pairs(dev).item())
+            cuda_filter.filter_known(got, qd[:, 0].contiguous(), qd[:, 1].contiguous(),
+                                     *index, 0, n_r)
+            after = (cuda_filter.launches, cuda_filter.masked_pairs(dev).item())
+            same = bool(torch.equal(got.cpu(), want))
+            log(f"[3] filter_known direction {direction} batch {lo // b}: {rows.numel()} "
+                f"known pairs, {after[1] - before[1]} cells masked on the card, tile "
+                f"{'bit-equal' if same else 'DIFFERS'} to the plain version's")
+            check(same, f"filter_known against its plain version ({direction}, {lo // b})")
+            check(after[1] - before[1] == rows.numel() > 0,
+                  f"filter_known: the counter equals the pair count ({direction}, {lo // b})")
+            check(after[0] - before[0] == 1, "filter_known: one launch a batch")
+    host = [torch.from_numpy(a) for a in known_csr(known, n_r, "o")]
+    index = [a.to(dev) for a in host]
+    q = torch.as_tensor(queries[:b])
+    rows, cols = (t.to(dev) for t in cuda_filter.known_pairs_reference(
+        q[:, 0], q[:, 1], *host, 0, n_e, n_r))
+    scores = torch.randn(b, n_e, device=dev)
+    qd = q.to(dev)
+    ent, rel = qd[:, 0].contiguous(), qd[:, 1].contiguous()
+    times = time_rounds(
+        {"kernel": lambda s: cuda_filter.filter_known(s, ent, rel, *index, 0, n_r),
+         "plain": lambda s: cuda_filter.filter_known_reference(s, ent, rel, *index, 0, n_r),
+         "library": lambda s: _old_mask(s, rows, cols)},
+        (scores,), f"filter_known at B={b}, C={n_e} (serving batch, "
+        f"{rows.numel()} known pairs)", n=50, n_plain=10)
+    steps = math.ceil(math.log2(len(host[0]) + 1))
+    hits = rows.unique().numel()  # every key has an answer, all inside the tile
+    nbytes = b * (16 + 8 * steps) + 16 * hits + 8 * rows.numel()
+    return 0.0, [timed_shape(f"B={b}, C={n_e}, {len(host[0])} keys, {rows.numel()} known "
+                             "pairs: a serving batch", times, nbytes=nbytes, flops=0,
+                             library="index_fill_ + masked_fill_ of the pairs")]
+
+
 def make_model(cfg, ds):
     if cfg.model == "transe":
         return TransE(ds.n_entities, ds.n_relations, ncomp=cfg.ncomp)
@@ -1741,6 +1830,7 @@ def reset_counts() -> None:
     cuda_segment.deterministic_launches = cuda_segment.combine_launches = 0
     grouping.launches = 0
     cuda_l1.launches = cuda_l1.backward_launches = 0
+    cuda_filter.launches = 0
 
 
 def read_counts() -> dict:
@@ -1748,12 +1838,19 @@ def read_counts() -> dict:
     counts[VECTOR] = cuda_segment.vector_launches
     counts[L1] = cuda_l1.launches
     counts[L1_GRAD] = cuda_l1.backward_launches
+    counts[FILTER] = cuda_filter.launches
     return counts
 
 
-def _launches(k1, k2, vector, l1=0, l1_grad=0) -> dict:
+def _launches(k1, k2, vector, l1=0, l1_grad=0, filters=0) -> dict:
     return {"segment_sum": k1, "segment_outer_sum": k2, VECTOR: vector, L1: l1,
-            L1_GRAD: l1_grad}
+            L1_GRAD: l1_grad, FILTER: filters}
+
+
+def _served(tiles, k3=True) -> dict:
+    """`tiles` score tiles served: one `filter_known` launch each, and one
+    K3 forward each where the model is TransE-L1 in fp32 (`k3`)."""
+    return _launches(0, 0, 0, tiles if k3 else 0, 0, tiles)
 
 
 def _transe_l1_pool(steps, forwards=0) -> dict:
@@ -2744,9 +2841,11 @@ def host_waits(run) -> int:
 def serving(graph, params, dev, launches) -> None:
     """10g: the serving engines on 10a's trained TransE-L1, on
     `skge_torch.serving_bench`'s query stream and timing at its defaults,
-    filtered by the train triples (the exact engine's timed run held to one
-    K3 forward a batch); then `serving_bench.main()` itself at its defaults
-    (random params, random known triples)."""
+    filtered by the train triples; then `serving_bench.main()` itself at
+    its defaults (random params, random known triples). Each path's counts
+    are set to 0 just before it and held after it to one `filter_known`
+    launch and one K3 forward a score tile (`_served`): a batch on the
+    in-core engines, a batch's chunk on the streamed one."""
     model = TransE(graph.n_entities, graph.n_relations, 150)
     _, queries = serving_bench.query_stream(graph.n_entities, graph.n_relations,
                                             SERVE.nknown, SERVE.nqueries)
@@ -2756,8 +2855,8 @@ def serving(graph, params, dev, launches) -> None:
     log(f"[10g] LinkPredictor built in {time.perf_counter() - t0:.2f} s (filter index "
         f"of {len(known)} triples)")
 
-    def filtered_like_exact(pred):  # the same filter index, built once
-        pred._index = exact._index
+    def filtered_like_exact(pred):  # the same filter index on the card, built once
+        pred._known = exact._known
         return pred
 
     def timed(pred, what):
@@ -2771,15 +2870,22 @@ def serving(graph, params, dev, launches) -> None:
     reset_counts()
     res, dt = timed(exact, "LinkPredictor exact")
     batches = 2 * -(-n // SERVE.batch)  # the timed run and its warm-up pass
-    _counted("10g", f"LinkPredictor exact, {batches} batches", _launches(0, 0, 0, batches),
-             dev, launches)
+    _counted("10g", f"LinkPredictor exact, {batches} batches", _served(batches), dev,
+             launches)
+    nb = SERVE.profile_batches
     if dev.type == "cuda":
-        nb = SERVE.profile_batches
+        reset_counts()
         profile_run(lambda: exact.top_k(queries[: nb * SERVE.batch], k), nb,
                     1e3 * dt / -(-n // SERVE.batch), "10g exact batch")
+        _counted("10g", f"LinkPredictor exact under the profiler, {nb} batches",
+                 _served(nb), dev, launches)
     # the rule: ids equal wherever the reference's k-th and (k+1)-th scores
     # lie more than RANK_GAP apart (as a set), in order where every gap does
+    reset_counts()
     ref11 = exact.top_k(queries[: SERVE.cpu_queries], k + 1)
+    first_batches = -(-SERVE.cpu_queries // SERVE.batch)
+    _counted("10g", f"LinkPredictor exact, top {k + 1}, {first_batches} batches",
+             _served(first_batches), dev, launches)
 
     def agree(tag, got, ref):
         gaps = -np.diff(ref.scores.astype(np.float64), axis=1)
@@ -2796,34 +2902,47 @@ def serving(graph, params, dev, launches) -> None:
         check(err <= RANK_GAP, f"{tag}: scores within {RANK_GAP}")
 
     t0 = time.perf_counter()
-    cpu11 = filtered_like_exact(LinkPredictor(
-        model, params, batch_size=SERVE.batch, device="cpu")).top_k(
-            queries[: SERVE.cpu_queries], k + 1)
+    reset_counts()
+    cpu11 = LinkPredictor(model, params, known=known, batch_size=SERVE.batch,
+                          device="cpu").top_k(queries[: SERVE.cpu_queries], k + 1)
     log(f"[10g] the CPU engine on {SERVE.cpu_queries} queries in "
         f"{time.perf_counter() - t0:.2f} s")
+    _counted("10g", "the CPU engine, nothing on the card", _served(0), dev, launches)
     first = SimpleNamespace(entities=res.entities[: SERVE.cpu_queries],
                             scores=res.scores[: SERVE.cpu_queries])
     agree("10g card vs CPU", first, cpu11)
     for quantize in ("int8", "fp8", "bfloat16"):
-        q, _ = timed(filtered_like_exact(LinkPredictor(
-            model, params, batch_size=SERVE.batch, quantize=quantize, device=dev)),
-            f"LinkPredictor {quantize}")
+        pred = filtered_like_exact(LinkPredictor(
+            model, params, batch_size=SERVE.batch, quantize=quantize, device=dev))
+        reset_counts()  # the rows dequantized to fp32: K3 scores them
+        q, _ = timed(pred, f"LinkPredictor {quantize}")
+        _counted("10g", f"LinkPredictor {quantize}, {batches} batches", _served(batches),
+                 dev, launches)
         overlap = np.mean([len(set(a) & set(b)) / k for a, b in zip(res.entities, q.entities)])
         log(f"[10g] {quantize}: mean top-{k} overlap with exact {overlap:.4f}")
     streamed = filtered_like_exact(StreamedLinkPredictor(
         model, params, batch_size=SERVE.batch, chunk=SERVE.chunk, device=dev))
+    chunks = -(-graph.n_entities // streamed.chunk)
+    reset_counts()
     sres, sdt = timed(streamed, f"StreamedLinkPredictor chunk {SERVE.chunk}")
+    _counted("10g", f"StreamedLinkPredictor, {batches} batches of {chunks} chunks",
+             _served(batches * chunks), dev, launches)
     log(f"[10g] streamed: {streamed.bytes_uploaded / batches / 1e6:.3f} MB uploaded a "
         f"query batch of {SERVE.batch}")
     if dev.type == "cuda":
-        nb = SERVE.profile_batches
+        reset_counts()
         profile_run(lambda: streamed.top_k(queries[: nb * SERVE.batch], k), nb,
                     1e3 * sdt / -(-n // SERVE.batch), "10g streamed batch")
+        _counted("10g", f"StreamedLinkPredictor under the profiler, {nb} batches of "
+                 f"{chunks} chunks", _served(nb * chunks), dev, launches)
         one = filtered_like_exact(StreamedLinkPredictor(
             model, params, batch_size=SERVE.batch, chunk=graph.n_entities, device=dev))
+        reset_counts()
         waits = {what: host_waits(lambda: pred.top_k(queries[: SERVE.batch], k))
                  for what, pred in (("exact", exact), ("streamed", streamed),
                                     ("streamed in 1 chunk", one))}
+        _counted("10g", "one batch on each engine under sync debug mode",
+                 _served(1 + chunks + 1), dev, launches)
         log(f"[10g] the host's waits on the card in one query batch: {waits}")
         check(waits["streamed"] == waits["streamed in 1 chunk"],
               "10g: the streamed engine's host waits do not grow with its chunks")
@@ -2831,8 +2950,13 @@ def serving(graph, params, dev, launches) -> None:
         entities=sres.entities[: SERVE.cpu_queries],
         scores=sres.scores[: SERVE.cpu_queries]), ref11)
     argv = (["--cpu"] if dev.type == "cpu" else []) + SERVE.bench
-    (line, res), _ = _run_logged("10g", serving_bench.main, argv)
     bench = serving_bench.parse_args(argv)
+    reset_counts()
+    (line, res), _ = _run_logged("10g", serving_bench.main, argv)
+    passes = 2 + (bench.recall and bool(bench.quantize))  # warm-up, timed, recall's
+    _counted("10g", f"serving_bench.main, {passes} passes",
+             _served(passes * -(-bench.nqueries // bench.batch),
+                     bench.model == "transe" and not (bench.l2 or bench.bf16)), dev, launches)
     check(line["metric"] == "transe_filtered_top10_queries_per_s" and line["value"] > 0
           and res.entities.shape == (bench.nqueries, bench.k), "10g: the serving bench's line")
 
@@ -3562,18 +3686,26 @@ def mesh_pad_to(graph, dev, launches) -> None:
     check(err <= STEP_TOL, f"12c: pad_to=4 within {STEP_TOL} of pad_to=1")
 
 
-def mesh_serving(graph, tr, dev, mesh) -> None:
+def mesh_serving(graph, tr, dev, mesh, launches) -> None:
     """12d: the mesh's serving engine and ranking on 12a's params against
-    the single-device ones."""
+    the single-device ones; each engine's top k held to one `filter_known`
+    launch and one K3 forward a batch on each rank (this process's one)."""
     model, params = tr.model, tr.state.params
     rng = np.random.default_rng(0)  # scripts/serving_bench.py's queries
     queries = np.stack([rng.integers(0, graph.n_entities, SERVE.nqueries),
                         rng.integers(0, graph.n_relations, SERVE.nqueries)],
                        axis=1)[:MESH_QUERIES]
+    batches = -(-MESH_QUERIES // SERVE.batch)
     for quant in ("", "int8"):
-        got, want = (LinkPredictor(model, params, known=graph.train, batch_size=SERVE.batch,
-                                   quantize=quant, **kw).top_k(queries, SERVE.k)
-                     for kw in (dict(mesh=mesh), dict(device=dev)))
+        res = {}
+        for what, kw in (("mesh", dict(mesh=mesh)), ("single-device", dict(device=dev))):
+            pred = LinkPredictor(model, params, known=graph.train, batch_size=SERVE.batch,
+                                 quantize=quant, **kw)
+            reset_counts()
+            res[what] = pred.top_k(queries, SERVE.k)
+            _counted("12d", f"{what} LinkPredictor {quant or 'exact'}, {batches} batches",
+                     _served(batches), dev, launches)
+        got, want = res["mesh"], res["single-device"]
         same = (np.array_equal(got.entities, want.entities)
                 and np.array_equal(got.scores, want.scores))
         log(f"[12d] LinkPredictor(mesh=) {quant or 'exact'}: {MESH_QUERIES} queries, top-"
@@ -3640,7 +3772,7 @@ def mesh_phase(graph, dev, launches) -> None:
         tr = mesh_trainer(graph, dev, m, launches)
         mesh_steps(graph, dev, m, _cpu_mesh(), launches)
         mesh_pad_to(graph, dev, launches)
-        mesh_serving(graph, tr, dev, m)
+        mesh_serving(graph, tr, dev, m, launches)
         scaling_worker(dev, m, launches)
     finally:
         pdist.destroy()
@@ -3923,11 +4055,12 @@ def bf16_step(tag, what, make, graph, positives, want, dev, launches) -> None:
     _score_gaps(tag, what, make, state.params, score, dev)
 
 
-def bf16_serving(graph, dev) -> None:
+def bf16_serving(graph, dev, launches) -> None:
     """13d: `LinkPredictor` top-10 over HolE ncomp 150 at WN18's shape (its
     initial params, seeded), filtered by the train triples, exact (fp32)
     against compute_dtype bfloat16: batch time, top-10 overlap, score
-    gaps."""
+    gaps; each engine held to one `filter_known` launch a batch (HolE
+    takes no K3)."""
     hole = lambda cd: HolE(graph.n_entities, graph.n_relations, 150,  # noqa: E731
                            compute_dtype=cd)
     params = hole("").init_params(torch.Generator(device=dev).manual_seed(COMPAT.seed))
@@ -3937,15 +4070,19 @@ def bf16_serving(graph, dev) -> None:
     exact = LinkPredictor(hole(""), params, known=graph.train,
                           batch_size=SERVE.batch, device=dev)
     fast = LinkPredictor(hole("bfloat16"), params, batch_size=SERVE.batch, device=dev)
-    fast._index = exact._index
+    fast._known = exact._known
     res, ms = {}, {}
+    batches = 1 + -(-BF16.queries // SERVE.batch)  # the warm-up's one and the run's
     for what, pred in (("fp32", exact), ("bf16", fast)):
+        reset_counts()
         pred.top_k(queries[: SERVE.batch], SERVE.k)  # warm-up
         _sync(dev)
         t0 = time.perf_counter()
         res[what] = pred.top_k(queries, SERVE.k)
         _sync(dev)
         ms[what] = 1e3 * (time.perf_counter() - t0) / (BF16.queries // SERVE.batch)
+        _counted("13d", f"LinkPredictor over HolE {what}, {batches} batches",
+                 _served(batches, k3=False), dev, launches)
         check(np.isfinite(res[what].scores).all(), f"13d serving {what}: finite scores")
     overlap = np.mean([len(set(a) & set(b)) / SERVE.k
                        for a, b in zip(res["fp32"].entities, res["bf16"].entities)])
@@ -3976,7 +4113,7 @@ def compat_phase(fb15k, wn18, dev, launches) -> None:
               _launches(3, 0, 2), dev, launches)
     bf16_step("13d", "RESCAL", rescal, fb15k, _batch_size(RESCAL_PAIRWISE),
               _launches(2, 1, 1), dev, launches)
-    bf16_serving(wn18, dev)
+    bf16_serving(wn18, dev, launches)
 
 
 def _suite_argv(argv, dev) -> list:
@@ -4583,7 +4720,8 @@ def main(argv) -> int:
     verify = not argv
     checks = {"segment_sum": segment_sum_checks(dev, verify),
               "segment_outer_sum": segment_outer_sum_checks(dev, verify),
-              "l1_pool": l1_pool_checks(dev, verify)}
+              "l1_pool": l1_pool_checks(dev, verify),
+              "filter_known": filter_known_checks(dev, verify)}
     t_kernels = time.perf_counter()
     if not verify:  # phase 3's timings alone: no check, no result line
         log(json.dumps({name: shapes for name, (_, shapes) in checks.items()}))
@@ -4592,7 +4730,7 @@ def main(argv) -> int:
     graphs = {name: synthetic_kg(g.n_entities, g.n_relations, g.n_train,
                                  n_test=g.n_test, seed=g.seed, clustered=False)
               for name, g in (("fb15k", DATA), ("wn18", WN18))}
-    launches = dict.fromkeys([*KERNELS, VECTOR, L1, L1_GRAD], 0)
+    launches = dict.fromkeys([*KERNELS, VECTOR, L1, L1_GRAD, FILTER], 0)
     trained = {}
     for cfg, tag in PATHS:
         *run, counts, _, step_ms = train(cfg, graphs[cfg.data], dev, tag)
@@ -4681,7 +4819,7 @@ def main(argv) -> int:
         + ", ".join(f"16{sub} {s:.1f}" for sub, s in t_16.items())
         + f"), 17 {t_end - t_17s:.1f} s")
     # each kernel at the TransE or RESCAL slice's shape, its other timed
-    # shapes under "shapes"
+    # shapes under "shapes"; launches summed over the counted paths
     log(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -4695,7 +4833,8 @@ def main(argv) -> int:
             "bound_share")},
         "shapes": checks[name][1],
     } for name, (_, source, replaces) in {
-        **KERNELS, "l1_pool": (cuda_l1, "skge_torch/csrc/l1_pool.cu", None)}.items()]}))
+        **KERNELS, "l1_pool": (cuda_l1, "skge_torch/csrc/l1_pool.cu", None),
+        "filter_known": (cuda_filter, "skge_torch/csrc/filter_known.cu", None)}.items()]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -633,6 +633,37 @@ def true_triple_index(triples: np.ndarray):
             _group_unique(t[:, 1], t[:, 2], t[:, 0]))
 
 
+def known_csr(triples: np.ndarray, n_relations: int, direction: str):
+    """The known-true lookup of one direction as a CSR index: (s, p) -> o
+    for direction 'o', (o, p) -> s for 's'.
+
+    Returns (keys, offsets, answers): `keys` the sorted distinct int64
+    entity * n_relations + relation of the query side, `offsets` int64
+    (len(keys) + 1), and `answers[offsets[i]:offsets[i + 1]]` the int32
+    answers of key i, sorted and distinct: `true_triple_index`'s list for
+    that key. Relations must lie in [0, n_relations) and entities be >= 0.
+    """
+    if direction not in ("o", "s"):
+        raise ValueError(f"direction must be 'o' or 's', got {direction!r}")
+    t = np.asarray(triples, np.int64).reshape(-1, 3)
+    ent, ans = (t[:, 0], t[:, 1]) if direction == "o" else (t[:, 1], t[:, 0])
+    rel = t[:, 2]
+    if t.size and (rel.min() < 0 or rel.max() >= n_relations or min(ent.min(), ans.min()) < 0):
+        raise ValueError(f"known triples need relations in [0, {n_relations}) and entities "
+                         ">= 0")
+    keys = ent * n_relations + rel
+    order = np.lexsort((ans, keys))
+    keys, ans = keys[order], ans[order]
+    keep = np.ones(keys.size, bool)
+    keep[1:] = (keys[1:] != keys[:-1]) | (ans[1:] != ans[:-1])
+    keys, ans = keys[keep], ans[keep]
+    first = np.ones(keys.size, bool)
+    first[1:] = keys[1:] != keys[:-1]
+    starts = np.flatnonzero(first)
+    offsets = np.append(starts, keys.size).astype(np.int64)
+    return keys[starts], offsets, ans.astype(np.int32)
+
+
 def cached_dataset(path, n_entities: int, n_relations: int,
                    build: Callable[[], Dataset]) -> Tuple[Dataset, bool]:
     """The train, valid and test splits read from the npz at `path`, or

@@ -12,7 +12,11 @@ exactly, with known-true triples filtered out.
   holds two chunks and the frontier, never the table.
 
 Both score candidates through the model's `score_pool`, as the JAX
-package's engines do, so their scores agree with each other. Ties break
+package's engines do, so their scores agree with each other. The filter
+is built once: `known`'s CSR index of each direction (`known_csr`) lives
+on the device, and each score tile (a batch, a rank's block, a chunk) is
+masked by one `filter_known` launch (ops/cuda_filter.py; its plain
+version off the card), with no per-query work on the host. Ties break
 toward the lower entity id, as `lax.top_k` breaks them: `_top_k` takes
 `torch.topk`'s k-th value, then keeps every entity above it and the
 lowest ids among those equal to it. In the streamed fold the frontier,
@@ -27,7 +31,7 @@ and StableHLO artifacts and have no counterpart here.
 `LinkPredictor(mesh=, axis=)` is the candidate-sharded engine: the entity
 table row-sharded over the mesh's `axis` group, each rank gathers the query
 rows masked-locally (one all-reduce), scores only its own candidate block,
-filters with local ids and takes its local top-min(k, S); the (B, k)
+filters it (base rank * S) and takes its local top-min(k, S); the (B, k)
 frontiers are all-gathered and merged under the same lower-id rule. Every
 rank of the group calls `top_k` with the same queries and gets the same
 result.
@@ -44,9 +48,10 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from skge_torch.data import true_triple_index
+from skge_torch.data import known_csr
 from skge_torch.evaluation import NEG_INF
 from skge_torch.models.base import KGEModel, Params, entity_param
+from skge_torch.ops.cuda_filter import check_index, filter_known, filter_known_reference
 from skge_torch.utils.device import resolve_device
 from skge_torch.utils.metrics import span
 
@@ -155,37 +160,31 @@ def _query_rows(model: KGEModel, params: Params, ent, rel, direction: str):
 _MODE = {"o": 1, "s": 0}
 
 
-def _filter_pairs_for_batch(
-    queries: np.ndarray, index: dict, batch_rows: int
-) -> Tuple[np.ndarray, np.ndarray]:
-    """Flat (row, entity) known-true pairs for one query batch, padded to a
-    power of two as in the JAX package. Padding rows use row id =
-    `batch_rows` and are dropped before the write."""
-    rows, ents = [], []
-    for i, (e, r) in enumerate(queries):
-        true_ents = index.get((int(e), int(r)))
-        if true_ents is not None:
-            rows.extend([i] * len(true_ents))
-            ents.extend(true_ents.tolist())
-    width = 1 if len(rows) <= 1 else 1 << (len(rows) - 1).bit_length()
-    pad = width - len(rows)
-    rows.extend([batch_rows] * pad)
-    ents.extend([0] * pad)
-    return np.asarray(rows, np.int32), np.asarray(ents, np.int32)
+def _known_index(known, n_relations: int, device):
+    """{direction: (keys, offsets, answers)} of `known`'s CSR index
+    (`known_csr`) on `device`, uploaded and checked (`check_index`) once;
+    None without `known`."""
+    if known is None:
+        return None
+    t = np.asarray(known)
+    index = {d: tuple(torch.from_numpy(a).to(device) for a in known_csr(t, n_relations, d))
+             for d in _MODE}
+    for keys, offsets, answers in index.values():
+        check_index(keys, offsets, answers)
+    return index
 
 
-def _set_filtered(scores: torch.Tensor, frows, fcols) -> None:
-    """scores[frows, fcols] = NEG_INF, pairs with an out-of-range row or
-    column dropped (the padding pairs). The dropped pairs mark a spare row
-    and column of a mask, and every fill takes its value as a scalar
-    argument, so the host never waits on the device (an indexed write of
-    a Python value copies it to the card and synchronizes)."""
-    b, c = scores.shape
-    keep = (frows < b) & (fcols >= 0) & (fcols < c)
-    flat = torch.where(keep, frows * (c + 1) + fcols, (b + 1) * (c + 1) - 1)
-    mask = torch.zeros((b + 1) * (c + 1), dtype=torch.bool, device=scores.device)
-    mask.index_fill_(0, flat, True)
-    scores.masked_fill_(mask.view(b + 1, c + 1)[:b, :c], NEG_INF)
+def _mask_known(scores: torch.Tensor, ent, rel, index, base: int, n_relations: int):
+    """`scores` (B, C), its column j entity base + j, with every known
+    answer of each query set to NEG_INF: `filter_known`, one kernel launch,
+    on the card, its plain version elsewhere. The host builds and copies
+    nothing per query. `index` None leaves the scores as they are."""
+    if index is None:
+        return scores
+    scores = scores.contiguous()
+    mask = filter_known if scores.is_cuda else filter_known_reference
+    mask(scores, ent, rel, *index, base, n_relations)
+    return scores
 
 
 def _top_k(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -279,21 +278,20 @@ class LinkPredictor:
             for kk, v in params.items()
         }
         self.batch_size = int(batch_size)
-        sp_o, op_s = (true_triple_index(np.asarray(known))
-                      if known is not None else ({}, {}))
-        self._index = {"o": sp_o, "s": op_s}
+        self._known = _known_index(known, model.n_relations, self.device)
 
     @torch.no_grad()
-    def _batch(self, ent, rel, frows, fents, direction: str, k: int):
+    def _batch(self, ent, rel, index, direction: str, k: int):
         if self.group is not None:
-            return self._sharded_batch(ent, rel, frows, fents, direction, k)
+            return self._sharded_batch(ent, rel, index, direction, k)
         model, params = self.model, self.params
         with span("skge_torch.serve.score"):
             rows = _query_rows(model, params, ent, rel, direction)
             scores = model.score_pool(rows, _deq(params[entity_param(model)]),
                                       model.dense_params(params), _MODE[direction])
+        with span("skge_torch.serve.filter"):
+            scores = _mask_known(scores, ent, rel, index, 0, model.n_relations)
         with span("skge_torch.serve.topk"):
-            _set_filtered(scores, frows, fents)
             vals, ids = _top_k(scores, k)
             return _mask_invalid(vals, ids.to(torch.int32))
 
@@ -311,7 +309,7 @@ class LinkPredictor:
                 idx, s_rows, lambda i: _deq_rows(params[epname], i)))
         return rows
 
-    def _sharded_batch(self, ent, rel, frows, fents, direction: str, k: int):
+    def _sharded_batch(self, ent, rel, index, direction: str, k: int):
         """One batch on the candidate-sharded engine: this rank's block
         scored, filtered and cut to its top-min(k, S), the frontiers of
         the group merged."""
@@ -324,9 +322,8 @@ class LinkPredictor:
         rows = self._sharded_rows({"s": s_idx, "o": o_idx, "p": rel})
         scores = model.score_pool(rows, _deq(qe), model.dense_params(params),
                                   _MODE[direction])                 # (B, S)
-        # global filter ids -> local; other ranks' pairs fall out of range
-        loc = fents - off
-        _set_filtered(scores, frows, torch.where((loc >= 0) & (loc < s_rows), loc, s_rows))
+        with span("skge_torch.serve.filter"):  # this block's columns: entities off + j
+            scores = _mask_known(scores, ent, rel, index, off, model.n_relations)
         lvals, lids = _top_k(scores, min(k, s_rows))
         # (B, M * k') frontier in rank order: among equal scores the lower
         # position is the lower id, so `_top_k`'s rule carries over
@@ -352,7 +349,7 @@ class LinkPredictor:
         q = _queries(queries)
         n = q.shape[0]
         k = int(min(k, self.model.n_entities))
-        index = self._index[direction] if filtered else {}
+        index = self._known[direction] if filtered and self._known else None
         bs = min(self.batch_size, max(1, n))
         out_ids = np.empty((n, k), np.int32)
         out_vals = np.empty((n, k), np.float32)
@@ -361,12 +358,10 @@ class LinkPredictor:
             with span("skge_torch.serve.batch"):
                 batch = q[start : start + bs]
                 nvalid = batch.shape[0]
-                with span("skge_torch.serve.filter"):
-                    frows, fents = _filter_pairs_for_batch(batch, index, nvalid)
                 vals, ids = self._batch(
                     *(torch.as_tensor(a, dtype=torch.int64, device=dev)
-                      for a in (batch[:, 0], batch[:, 1], frows, fents)),
-                    direction, k)
+                      for a in (batch[:, 0], batch[:, 1])),
+                    index, direction, k)
                 with span("skge_torch.serve.fetch"):
                     out_ids[start : start + nvalid] = ids.cpu().numpy()
                     out_vals[start : start + nvalid] = vals.cpu().numpy()
@@ -439,9 +434,7 @@ class StreamedLinkPredictor:
                         if isinstance(stored, dict) else host(stored))
         self._small = {kk: _tensor(v).to(self.device)
                        for kk, v in params_host.items() if kk != epname}
-        sp_o, op_s = (true_triple_index(np.asarray(known))
-                      if known is not None else ({}, {}))
-        self._index = {"o": sp_o, "s": op_s}
+        self._known = _known_index(known, model.n_relations, self.device)
         self.bytes_uploaded = 0
 
     def _upload(self, lo: int, hi: int):
@@ -494,7 +487,7 @@ class StreamedLinkPredictor:
         q = _queries(queries)
         n = q.shape[0]
         k = int(min(k, model.n_entities))
-        index = self._index[direction] if filtered else {}
+        index = self._known[direction] if filtered and self._known else None
         mode = _MODE[direction]
         bs = min(self.batch_size, max(1, n))
         out_ids = np.empty((n, k), np.int32)
@@ -505,16 +498,14 @@ class StreamedLinkPredictor:
             batch = q[start : start + bs]
             nvalid = batch.shape[0]
             # query entity rows gathered (and dequantized) on the host
-            qrows = _query_rows(model, params, torch.from_numpy(batch[:, 0]),
-                                torch.as_tensor(batch[:, 1], device=dev), direction)
-            frows, fents = (torch.as_tensor(a, dtype=torch.int64, device=dev)
-                            for a in _filter_pairs_for_batch(batch, index, nvalid))
+            ent, rel = (torch.as_tensor(a, device=dev) for a in (batch[:, 0], batch[:, 1]))
+            qrows = _query_rows(model, params, torch.from_numpy(batch[:, 0]), rel, direction)
             vals = torch.full((nvalid, k), -np.inf, dtype=torch.float32, device=dev)
             ids = torch.full((nvalid, k), -1, dtype=torch.int32, device=dev)
             for base, payload in self._chunks():
                 cand = _deq(payload)
-                scores = model.score_pool(qrows, cand, dense, mode)  # (B, C)
-                _set_filtered(scores, frows, fents - base)
+                scores = _mask_known(model.score_pool(qrows, cand, dense, mode),  # (B, C)
+                                     ent, rel, index, base, model.n_relations)
                 cids = torch.arange(base, base + cand.shape[0], dtype=torch.int32,
                                     device=dev).expand(nvalid, -1)
                 vals, pick = _top_k(torch.cat([vals, scores], dim=1), k)
