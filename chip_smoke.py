@@ -85,19 +85,21 @@ Phases, each fatal:
    (forward and backward) beside the chunked sweep it replaced, and at the
    second (forward) beside the chunked forward, `-torch.cdist(q, p, p=1)`
    as the library at both;
-   the serving filter (`filter_known`, which replaces no TPU kernel) at the
-   serve cell's shape (four batches of 1,024 Zipf queries from
-   `kgebench.gen`'s laws against FB15k's 14,951 entities, filtered by its
-   483,142 triples, both directions): each tile bit-equal to the plain
-   version's on the host, the card's masked-cell counter equal to its pair
-   count, one launch a batch; timed at one batch beside the plain version
-   on the card and the mask it replaced (a bool mask of the pairs,
-   `index_fill_`, `masked_fill_`);
+   the filter of known answers (`filter_known`, serving's and every
+   ranking's, which replaces no TPU kernel) at the serve cell's shape (four
+   batches of 1,024 Zipf queries from `kgebench.gen`'s laws against FB15k's
+   14,951 entities, filtered by its 483,142 triples, both directions): each
+   tile bit-equal to the plain version's on the host, the card's
+   masked-cell counter equal to its pair count, one launch a batch; timed
+   at one batch beside the plain version on the card and the mask it
+   replaced (a bool mask of the pairs, `index_fill_`, `masked_fill_`);
 4. training, each path with the launch counts set to 0 just before it and
    read just after, exact launch counts (every gradient scatter on K1's
    16-byte path; K3's forward and two gradients a TransE-L1 pool step, and
-   a forward a ranking or serving batch), finite losses and params on the
-   card: TransE (4), RESCAL pairwise (4b), 2 epochs of 100 steps each;
+   a forward a ranking or serving batch; one `filter_known` launch a
+   ranked or served score tile, `_ranked` and `_served`, in every phase
+   that counts a ranking or serving: 7a, 10f, 10g, 11f, 12d, 13d, 14a-b,
+   15a, 15e and 16c-f), finite losses and params on the card: TransE (4), RESCAL pairwise (4b), 2 epochs of 100 steps each;
    RESCAL pointwise 10 steps (4c); iid TransE (4d), HolE (4e) and ER-MLP
    (4f), 2 epochs of 100 steps each, with the device's busy time per step
    (also for 4b);
@@ -1853,12 +1855,27 @@ def _served(tiles, k3=True) -> dict:
     return _launches(0, 0, 0, tiles if k3 else 0, 0, tiles)
 
 
-def _transe_l1_pool(steps, forwards=0) -> dict:
+def _ranked(n, batch, parts=1) -> int:
+    """The score tiles of one filtered ranking of `n` queries in batches of
+    `batch`: each batch in both directions, against the whole table
+    (`FilteredRankingEval`) or against each of `parts` parts
+    (`OutOfCoreTrainer.evaluate`). One `filter_known` launch per ranked
+    tile."""
+    return 2 * -(-n // batch) * parts
+
+
+def _validations(epochs_run, every, epochs) -> int:
+    """The validations of a run that validates every `every` epochs and at
+    its last, `epochs`, and ran `epochs_run` of them."""
+    return sum(1 for e in range(1, epochs_run + 1) if e % every == 0 or e == epochs)
+
+
+def _transe_l1_pool(steps, tiles=0) -> dict:
     """`steps` of TransE-L1's shared-pool step on the card: one K1 a step on
     the 16-byte path (E and R in one scatter), one K3 forward (the modes'
-    queries stacked) and its two gradients (dq, dp); `forwards` more K3
-    forwards, a ranking's."""
-    return _launches(steps, 0, steps, steps + forwards, 2 * steps)
+    queries stacked) and its two gradients (dq, dp); `tiles` ranked score
+    tiles more, one K3 forward and one `filter_known` launch each."""
+    return _launches(steps, 0, steps, steps + tiles, 2 * steps, tiles)
 
 
 def drive(dev, tag, what, trainer, xs, run, want, scored_per_epoch, launches):
@@ -1940,8 +1957,11 @@ def surface(dev, launches) -> dict:
     n = len(ds.train)
 
     tr = exp.trainer
+    # one validation (epoch 2) and the test ranking, in batches of --eval-batch
+    ranked = _ranked(len(ds.valid), exp.args.eval_batch) + _ranked(len(ds.test),
+                                                                   exp.args.eval_batch)
     result = drive(dev, "7a", "HolE random-mode margin 0.2 (CLI defaults)", tr, ds.train,
-                   exp.run, _launches(200, 0, 200), 2 * 2 * n, launches)
+                   exp.run, _launches(200, 0, 200, filters=ranked), 2 * 2 * n, launches)
     check(np.isfinite(result["mrr"]) and 0 < result["mrr"] <= 1, "7a: finite test MRR")
     log(f"[7a] valid MRR {exp.best_mrr:.6f}; test "
         + json.dumps({k: round(v, 6) for k, v in result.items()}))
@@ -2795,8 +2815,13 @@ def outofcore_recipe(dev, launches) -> None:
     log(f"[10f] run in {time.perf_counter() - t0:.2f} s (train "
         f"{result['train_seconds']:.2f} s, {steps} steps): kernel launches {counts}; "
         "test " + json.dumps({k: round(v, 6) for k, v in result.items()}))
+    # the streamed validation over the trainer's parts, then the in-core test
+    # ranking of the best params
+    ranked = (_ranked(len(exp.ds.valid), exp.args.eval_batch, tr.n_parts)
+              + _ranked(len(exp.ds.test), exp.args.eval_batch))
     if dev.type == "cuda":
-        check(counts == _launches(steps, 0, steps), f"10f: launches {counts}")
+        want = _launches(steps, 0, steps, filters=ranked)
+        check(counts == want, f"10f: launches {counts}, want {want}")
     for name in launches:
         launches[name] += counts[name]
     check(np.isfinite(result["mrr"]) and 0 < result["mrr"] <= 1, "10f: finite test MRR")
@@ -3272,10 +3297,10 @@ def partitioned_cli(dev, launches) -> None:
             f"unset: {sorted(saved) or 'none were set'}")
         a = exp.args
         steps = a.me * exp.scaleout.nbatches
-        # K3 forwards of the rankings: a validation every --test-all epochs
-        # and the test, each 2 directions of ceil(n / --eval-batch) batches
+        # the rankings' tiles: a validation every --test-all epochs and the
+        # test, each 2 directions of ceil(n / --eval-batch) batches
         ranked = [len(exp.ds.valid)] * (a.me // a.test_all) + [len(exp.ds.test)]
-        forwards = sum(2 * -(-n // a.eval_batch) for n in ranked)
+        tiles = sum(_ranked(n, a.eval_batch) for n in ranked)
         reset_counts()
         t0 = time.perf_counter()
         result = exp.run()
@@ -3288,7 +3313,7 @@ def partitioned_cli(dev, launches) -> None:
             "test " + json.dumps({k: round(v, 6) for k, v in result.items()}))
         check(np.isfinite(result["mrr"]) and 0 < result["mrr"] <= 1, "11f: finite test MRR")
         if dev.type == "cuda":
-            check(counts == _transe_l1_pool(steps, forwards), f"11f: launches {counts}")
+            check(counts == _transe_l1_pool(steps, tiles), f"11f: launches {counts}")
     finally:
         pdist.destroy()
         os.environ.update(saved)
@@ -4123,10 +4148,12 @@ def _suite_argv(argv, dev) -> list:
 def quality_row(tag, what, argv, per_step, gate, dev, launches) -> dict:
     """14a-b: one row of `skge_torch.quality_suite.main` as a user runs it,
     its `--out` line under build/chip_smoke/, the counts set to 0 just
-    before it and held to `per_step` times its steps (on the card) after;
-    its filtered MRR at least `gate`."""
+    before it and held to `per_step` times its steps, and its rankings'
+    tiles (its validations and the test, in batches of 1,024), on the card
+    after; its filtered MRR at least `gate`."""
     argv = _suite_argv(argv + ["--out", f"{OUT}/quality.md"], dev)
-    nbatches = quality_suite.parse_args(argv).nbatches
+    args = quality_suite.parse_args(argv)
+    nbatches = args.nbatches
     os.makedirs(OUT, exist_ok=True)
     reset_counts()
     _sync(dev)
@@ -4137,6 +4164,10 @@ def quality_row(tag, what, argv, per_step, gate, dev, launches) -> dict:
     counts = read_counts()
     steps = row["epochs_run"] * nbatches
     want = {name: n * steps for name, n in per_step.items()}
+    held = quality_suite.held_out(args.ntrain)
+    vals = (_validations(row["epochs_run"], args.eval_every, args.epochs)
+            if args.eval_every else 0)
+    want[FILTER] += vals * _ranked(held, 1024) + _ranked(held, 1024)
     log(f"[{tag}] {what}: {json.dumps(row)}; {dt:.2f} s with the KG and the rankings; "
         f"launches {counts} for {steps} steps")
     for key in ("mrr", "mrr_raw", "hits1", "hits3", "hits10", "mr", "train_s"):
@@ -4314,7 +4345,10 @@ def flagship_1m(dev, launches):
         check(report["k1_launches"] == [steps] * args.epochs,
               f"15a: K1 launches {report['k1_launches']} equal the steps ({steps} an epoch)")
         total = steps * args.epochs + 2 * report["profile"]["steps"]  # 2 profiled epochs
-        check(counts == _launches(total, 0, total), f"15a: launches {counts}, want {total}")
+        # the streamed ranking of --eval-n test triples over the parts
+        ranked = _ranked(min(args.eval_n, args.nheld), args.eval_batch, args.parts)
+        want = _launches(total, 0, total, filters=ranked)
+        check(counts == want, f"15a: launches {counts}, want {want}")
     for name in launches:
         launches[name] += counts[name]
     return tr, args
@@ -4424,8 +4458,15 @@ def ooc_ce_ab_phase(dev, launches) -> None:
     aug = add_reciprocal_relations(ooc_ce_ab.load_kg(args, dev))
     sampled = ooc_ce_ab.make_trainer(args, aug, "sampled_ce", 2, dev)
     steps = args.epochs * _ooc_steps(sampled)  # full CE launches none
+    # each arm's streamed rankings over its parts: a validation every
+    # --eval-every epochs (no arm stops early at one epoch) and the test
+    vals = -(-args.epochs // args.eval_every)
+    ranked = sum(vals * _ranked(len(aug.valid), 1024, int(arm.split(":")[1]))
+                 + _ranked(len(aug.test), 1024, int(arm.split(":")[1]))
+                 for arm in args.arms.split(","))
     if dev.type == "cuda":
-        check(counts == _launches(steps, 0, steps), f"15e: launches {counts}, want {steps}")
+        want = _launches(steps, 0, steps, filters=ranked)
+        check(counts == want, f"15e: launches {counts}, want {want}")
     for name in launches:
         launches[name] += counts[name]
     check([r["arm"] for r in rows] == args.arms.split(",")
@@ -4512,8 +4553,9 @@ def verify_drivers(dev, launches) -> None:
     ds = verify_selfadv.load(dev)
     results = {"ce": verify_ce.run(ds, 0.3, 0.0, 0, dev),
                "n3": verify_n3.run(ds, 1e-3, 0, dev, lr=1.0)}
-    _counted("16c", "verify_selfadv, verify_ce and verify_n3", _launches(0, 0, 0), dev,
-             launches)
+    # each verify tool's one test ranking, in batches of 100
+    _counted("16c", "verify_selfadv, verify_ce and verify_n3",
+             _launches(0, 0, 0, filters=3 * _ranked(len(ds.test), 100)), dev, launches)
     for name, (mrr, h10) in results.items():
         log(f"[16c] verify_{name}.run, seed 0: MRR {mrr:.4f} hits@10 {h10:.4f}")
         check(0 < mrr <= 1, f"16c: verify_{name}'s MRR finite and positive")
@@ -4527,7 +4569,11 @@ def rotate_probe_phase(dev, launches) -> None:
     reset_counts()
     rows, _ = _run_logged("16d", rotate_probe.main, argv)
     steps = len(rows) * args.epochs * args.nbatches  # no variant stops early at 2 epochs
-    _counted("16d", "rotate_probe", _launches(2 * steps, 0, 2 * steps), dev,
+    # each variant's validations and test ranking, in batches of 1,024
+    held = quality_suite.held_out(args.ntrain)
+    ranked = len(rows) * (_validations(args.epochs, args.eval_every, args.epochs)
+                          * _ranked(held, 1024) + _ranked(held, 1024))
+    _counted("16d", "rotate_probe", _launches(2 * steps, 0, 2 * steps, filters=ranked), dev,
              launches)
     check([r["tag"] for r in rows] == ["paper-init g=6.0", "nunif g=6.0",
                                        "oracle-init g=6.0"], "16d: a row a variant")
@@ -4536,7 +4582,8 @@ def rotate_probe_phase(dev, launches) -> None:
     reset_counts()
     (oracle,), _ = _run_logged("16d", rotate_probe.main,
                                _cpu_flag(dev) + ROTATE_PROBE_ORACLE)
-    _counted("16d", "rotate_probe's oracle, no epoch", _launches(0, 0, 0), dev, launches)
+    _counted("16d", "rotate_probe's oracle, no epoch",
+             _launches(0, 0, 0, filters=_ranked(held, 1024)), dev, launches)
     log(f"[16d] the oracle's test MRR {oracle['mrr']}, H@10 {oracle['hits10']}, MR "
         f"{oracle['mr']} at the generator's latents (JAX {ORACLE_JAX}); after {args.epochs} "
         f"epochs MRR {rows[-1]['mrr']}, H@10 {rows[-1]['hits10']}, MR {rows[-1]['mr']}")
@@ -4568,7 +4615,12 @@ def density_point(dev, launches) -> None:
     reset_counts()
     rows, _ = _run_logged("16e", density_curve.main,
                           _cpu_flag(dev) + DENSITY_POINT + ["--out", out])
-    _counted("16e", "density_curve, full CE", _launches(0, 0, 0), dev, launches)
+    # each model's validations and test ranking, in batches of 1,024
+    dargs = density_curve.parse_args(DENSITY_POINT)
+    ranked = sum((_validations(r["epochs_run"], dargs.eval_every, dargs.epochs) + 1)
+                 * _ranked(quality_suite.held_out(r["ntrain"]), 1024) for r in rows)
+    _counted("16e", "density_curve, full CE", _launches(0, 0, 0, filters=ranked), dev,
+             launches)
     check([(r["model"], r["role"]) for r in rows]
           == [("TransE-L2", "matched"), ("ComplEx", "contrast")]
           and all(0 < r["mrr"] <= 1 for r in rows), "16e: a finite row a model")
@@ -4577,14 +4629,18 @@ def density_point(dev, launches) -> None:
 def run_rescal_phase(dev, launches) -> None:
     """16f: `python -m skge_torch.run_rescal`, one epoch."""
     argv = _cpu_flag(dev) + FB15K_ARGS + RUN_RESCAL
-    nb = make_parser().parse_args(argv).nb
+    a = make_parser().parse_args(argv)
+    nb = a.nb
+    # one validation and the test ranking of the CLI's synthetic splits,
+    # max(50, train // 20) triples each
+    ranked = 2 * _ranked(max(50, a.synthetic_train // 20), a.eval_batch)
     out = io.StringIO()
     reset_counts()
     with contextlib.redirect_stdout(out):
         code = run_rescal.main(argv)
     for line in out.getvalue().splitlines():
         log(f"[16f] {line}")
-    _counted("16f", "run_rescal, shared pool", _launches(2 * nb, nb, nb), dev,
+    _counted("16f", "run_rescal, shared pool", _launches(2 * nb, nb, nb, filters=ranked), dev,
              launches)
     check(code == 0, "16f: run_rescal exits 0")
 

@@ -693,8 +693,9 @@ def rows_with_keys(triples: np.ndarray, queries: np.ndarray, col: int) -> np.nda
     some row of `queries`' (col 0: the (s, p) keys of object queries, col
     1: the (o, p) keys of subject queries), in their order: the only known
     triples a filtered ranking of `queries` in that direction reads, so
-    `true_triple_index` over them gives the same ranks as over all of
-    `triples`, in O(len(triples) log len(queries)) host work."""
+    an index of known answers (`known_csr`, `true_triple_index`) over them
+    gives the same ranks as over all of `triples`, in
+    O(len(triples) log len(queries)) host work."""
     t = np.asarray(triples).reshape(-1, 3)
     q = np.asarray(queries).reshape(-1, 3)
     if not len(t) or not len(q):

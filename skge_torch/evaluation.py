@@ -7,14 +7,18 @@ and filtered) are pooled over both directions. `ties='mean'` (default)
 ranks the target at 1 + #greater + #equal/2; `ties='optimistic'` at
 1 + #greater.
 
-The all-entity sweep is the model's `score_all_o/s`. The host builds, once
-per eval set, a flat (row, entity) list of known-true pairs per test batch,
-and the device writes -inf at those pairs. `candidate_mask` leaves entities
-out of the candidates (the partitioned relabeling's padding rows). With a
-`group` (`parallel.distributed.ShardGroup`) the entity table is row-sharded
-over its ranks: each rank scores only its own candidate columns and the
-greater and equal counts are summed over the ranks, the ranks of the
-gathered table. `mesh` (a `parallel.mesh.Mesh`) does the same over the
+The all-entity sweep is the model's `score_all_o/s`. The known triples'
+CSR index of both directions is built once per evaluator and put on each
+device once; each batch's score tile gives its raw counts, is then masked
+in place by `ops/cuda_filter.mask_known` (one `filter_known` launch on the
+card, as serving masks its tiles) and gives its filtered counts. The
+filter key is the query's own (s, p) or (o, p). `candidate_mask` leaves
+entities out of the candidates (the partitioned relabeling's padding
+rows). With a `group` (`parallel.distributed.ShardGroup`) the entity
+table is row-sharded over its ranks: each rank scores only its own
+candidate columns (masked with `base` its first entity) and the greater
+and equal counts are summed over the ranks, the ranks of the gathered
+table. `mesh` (a `parallel.mesh.Mesh`) does the same over the
 mesh's `axis` group ('model' by default). `RankingResult` splits the
 metrics by direction, relation and relation category
 (`relation_categories`); `ReciprocalEvalWrapper` ranks a model trained on
@@ -31,15 +35,15 @@ package.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from skge_torch.data import encode_keys_np, true_triple_index
+from skge_torch.data import encode_keys_np
 from skge_torch.models.base import KGEModel, Params
-
-NEG_INF = -1e30
+from skge_torch.ops.cuda_filter import NEG_INF, known_index, mask_known
 
 
 @dataclass
@@ -122,27 +126,6 @@ def ranking_scores(
     )
 
 
-def _filter_pairs(batch: np.ndarray, index: dict, direction: str):
-    """Flat (row, entity) known-true pairs for one batch, padded to the
-    next power of two of the batch's own pair count. Padding rows use
-    row id = batch size and are dropped before the write."""
-    rows, ents = [], []
-    for i, (s, o, p) in enumerate(batch):
-        key = (int(s), int(p)) if direction == "o" else (int(o), int(p))
-        true_ents = index.get(key)
-        if true_ents is not None:
-            rows.extend([i] * len(true_ents))
-            ents.extend(true_ents.tolist())
-    width = 1 if len(rows) <= 1 else 1 << (len(rows) - 1).bit_length()
-    pad = width - len(rows)
-    rows.extend([batch.shape[0]] * pad)
-    ents.extend([0] * pad)
-    return (
-        np.asarray(rows, np.int32),
-        np.asarray(ents, np.int32),
-    )
-
-
 def _rank_of(greater, equal, ties, self_included):
     if ties == "optimistic":
         return (1 + greater).to(torch.float32)
@@ -151,30 +134,25 @@ def _rank_of(greater, equal, ties, self_included):
     return (1 + greater + torch.clamp(equal, min=0) * 0.5).to(torch.float32)
 
 
-def _counts(scores, tgt, frows, fents):
-    """(greater, equal) of `scores` against `tgt`, raw and with the
-    known-true pairs (frows, fents) at -inf: a (4, B) int64 stack."""
-    b = scores.shape[0]
-    keep = frows < b
-    filt = scores.clone()
-    filt[frows[keep], fents[keep]] = NEG_INF
-    return torch.stack([torch.sum(scores > tgt[:, None], dim=1),
-                        torch.sum(scores == tgt[:, None], dim=1),
-                        torch.sum(filt > tgt[:, None], dim=1),
-                        torch.sum(filt == tgt[:, None], dim=1)])
+def _counts(scores, tgt, filtered):
+    """(greater, equal) of `scores` against `tgt`, raw, then with the known
+    answers masked in place by `filtered(scores)`: a (4, B) int64 stack."""
+    raw = [torch.sum(scores > tgt[:, None], dim=1), torch.sum(scores == tgt[:, None], dim=1)]
+    scores = filtered(scores)
+    return torch.stack(raw + [torch.sum(scores > tgt[:, None], dim=1),
+                              torch.sum(scores == tgt[:, None], dim=1)])
 
 
-def _ranks(scores, target, frows, fents, ties):
+def _ranks(scores, target, filtered, ties):
     """(raw, filtered) float32 ranks of `target` in each row of `scores`."""
-    b = scores.shape[0]
-    tgt = scores[torch.arange(b, device=scores.device), target]
-    g, e, gf, ef = _counts(scores, tgt, frows, fents)
+    tgt = scores[torch.arange(scores.shape[0], device=scores.device), target]
+    g, e, gf, ef = _counts(scores, tgt, filtered)
     return _rank_of(g, e, ties, True), _rank_of(gf, ef, ties, False)
 
 
 class FilteredRankingEval:
-    """Precomputes filter indices once; evaluates any params snapshot on
-    the device the params live on.
+    """Builds the filter index once; evaluates any params snapshot on the
+    device the params live on.
 
     `candidate_mask` ((n_e,) bool): the entities that may compete (targets
     are always among them). `group`: the entity table is row-sharded over
@@ -212,8 +190,11 @@ class FilteredRankingEval:
         self.hits_at = tuple(hits_at)
         self.batch_size = int(min(batch_size, max(1, len(test))))
         self.test = np.asarray(test, np.int32)
-        sp_o, op_s = true_triple_index(np.asarray(known))
-        self._index = {"o": sp_o, "s": op_s}
+        known = np.asarray(known, np.int64).reshape(-1, 3)
+        # any count above every known relation id keys the index: a query
+        # whose relation lies past it has no known answers
+        self._n_relations = int(known[:, 2].max(initial=0)) + 1
+        self._known = {torch.device("cpu"): known_index(known, self._n_relations, "cpu")}
 
         # batch layout: pad the last batch by repeating row 0 (masked out)
         n = len(self.test)
@@ -223,13 +204,15 @@ class FilteredRankingEval:
         idx = np.concatenate([np.arange(n), np.zeros(padded - n, np.int64)])
         self._batches = self.test[idx].reshape(self.n_batches, bs, 3)
         self._valid = (np.arange(padded) < n).reshape(self.n_batches, bs)
-        self._pairs = {
-            direction: [
-                _filter_pairs(self._batches[b], self._index[direction], direction)
-                for b in range(self.n_batches)
-            ]
-            for direction in ("o", "s")
-        }
+
+    def _index_on(self, device):
+        """The filter index on `device`, put there on its first call."""
+        index = self._known.get(device)
+        if index is None:
+            host = self._known[torch.device("cpu")]
+            index = self._known[device] = {d: tuple(t.to(device) for t in host[d])
+                                           for d in host}
+        return index
 
     def _sharded_scorer(self, params: Params):
         """(direction, batch) -> (this rank's (B, S) scores, the target
@@ -269,7 +252,7 @@ class FilteredRankingEval:
 
         return score, lo, s_rows
 
-    def _sharded_ranks(self, score, d, batch, lo, s_rows, cmask, frows, fents):
+    def _sharded_ranks(self, score, d, batch, lo, s_rows, cmask, filtered):
         """Ranks from this rank's candidate columns: the target's score from
         its owner, then the greater and equal counts summed over ranks."""
         scores, target = score(d, batch)
@@ -281,11 +264,7 @@ class FilteredRankingEval:
         tgt = self.group.all_reduce(torch.where(
             own, scores[torch.arange(b, device=scores.device),
                         torch.clamp(local, 0, s_rows - 1)], 0))
-        fl = fents - lo
-        keep = (fl >= 0) & (fl < s_rows)
-        counts = self.group.all_reduce(_counts(
-            scores, tgt, torch.where(keep, frows, b), torch.clamp(fl, 0, s_rows - 1)))
-        g, e, gf, ef = counts
+        g, e, gf, ef = self.group.all_reduce(_counts(scores, tgt, filtered))
         return _rank_of(g, e, self.ties, True), _rank_of(gf, ef, self.ties, False)
 
     @torch.no_grad()
@@ -300,16 +279,17 @@ class FilteredRankingEval:
             score, lo, s_rows = self._sharded_scorer(params)
             if cmask is not None:
                 cmask = cmask[lo:lo + s_rows]
+        else:
+            lo = 0
+        index = self._index_on(device)
         pos = 0
         for b in range(self.n_batches):
             batch = torch.as_tensor(self._batches[b], dtype=torch.int64, device=device)
             s, o, p = batch[:, 0], batch[:, 1], batch[:, 2]
             nvalid = int(self._valid[b].sum())
             for d in ("o", "s"):
-                frows, fents = (
-                    torch.as_tensor(a, dtype=torch.int64, device=device)
-                    for a in self._pairs[d][b]
-                )
+                filtered = partial(mask_known, ent=s if d == "o" else o, rel=p,
+                                   index=index[d], base=lo, n_relations=self._n_relations)
                 if self.group is None:
                     if d == "o":
                         scores, target = self.model.score_all_o(params, s, p), o
@@ -317,10 +297,10 @@ class FilteredRankingEval:
                         scores, target = self.model.score_all_s(params, o, p), s
                     if cmask is not None:
                         scores = torch.where(cmask[None, :], scores, NEG_INF)
-                    raw, filt = _ranks(scores, target, frows, fents, self.ties)
+                    raw, filt = _ranks(scores, target, filtered, self.ties)
                 else:
-                    raw, filt = self._sharded_ranks(score, d, batch, lo, s_rows,
-                                                    cmask, frows, fents)
+                    raw, filt = self._sharded_ranks(score, d, batch, lo, s_rows, cmask,
+                                                    filtered)
                 ranks_raw[d][pos : pos + nvalid] = raw.cpu().numpy()[:nvalid]
                 ranks[d][pos : pos + nvalid] = filt.cpu().numpy()[:nvalid]
             pos += nvalid

@@ -1,5 +1,5 @@
-"""The serving filter as a hand-written CUDA kernel: known answers masked
-in the score tile.
+"""The filter of known answers as a hand-written CUDA kernel: known
+answers masked in the score tile, for serving and for the rankers.
 
 `filter_known(scores, ent, rel, keys, offsets, answers, base, n_relations)`
 sets scores[b, a - base] = NEG_INF (-1e30) for every known answer a of
@@ -11,8 +11,8 @@ answers. A query whose entity or relation is out of range, or whose key is
 not there, has no answers. Every other score is left as it was.
 
 `base` and the tile's width place the tile among the entities: 0 and all
-of them for the single-device engine, a rank's block on the sharded one, a
-chunk on the streamed one.
+of them on one device, a rank's block on the sharded engine and ranking, a
+chunk on the streamed engine, a part in the streamed ranking.
 
 `filter_known` takes tensors on the card only (scores fp32 or fp64 and
 contiguous, the ids int64) and raises on anything else; the kernel is
@@ -22,6 +22,13 @@ contiguous and on one device), not at every launch. It replaces no TPU
 kernel. `filter_known_reference` is the plain PyTorch version, the route
 off the card and the one the card tests hold the kernel to;
 `known_pairs_reference` gives the (row, column) cells both mask.
+
+Every ranker and engine filters through this module: `known_index` builds
+and uploads the index of the directions asked for once, and `mask_known`
+masks one tile, by the kernel on the card (which raises on a tile or ids it
+does not take) and by the plain version off it. `LinkPredictor` and
+`StreamedLinkPredictor` (serving.py), `FilteredRankingEval`
+(evaluation.py) and `OutOfCoreTrainer.evaluate` (outofcore.py) call it.
 
 `launches` counts the kernel's launches. Each launch also adds its count
 of masked cells to an int64 on the card (`masked_pairs(device)`), for
@@ -36,9 +43,12 @@ from typing import Dict, Tuple
 
 import torch
 
+from skge_torch.data import known_csr
 from skge_torch.ops import _build
 
-NEG_INF = -1e30  # skge_torch.evaluation.NEG_INF, the kernel's kNegInf
+NEG_INF = -1e30  # the kernel's kNegInf
+
+Index = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (keys, offsets, answers)
 
 launches = 0
 _masked: Dict[int, torch.Tensor] = {}
@@ -155,3 +165,32 @@ def filter_known(scores, ent, rel, keys, offsets, answers, base: int,
         raise RuntimeError("filter_known kernel launch failed: "
                            + lib.skge_cuda_error_string(err).decode())
     launches += 1
+
+
+def known_index(known, n_relations: int, device,
+                directions: Tuple[str, ...] = ("o", "s")) -> Dict[str, Index]:
+    """{direction: (keys, offsets, answers)}: the CSR index (`known_csr`) of
+    the (N, 3) (s, o, p) triples `known` for each of `directions`, (s, p) -> o
+    under 'o' and (o, p) -> s under 's', put on `device` and checked
+    (`check_index`) once."""
+    index = {d: tuple(torch.from_numpy(a).to(device) for a in known_csr(known, n_relations, d))
+             for d in directions}
+    for keys, offsets, answers in index.values():
+        check_index(keys, offsets, answers)
+    return index
+
+
+def mask_known(scores: torch.Tensor, ent, rel, index, base: int,
+               n_relations: int) -> torch.Tensor:
+    """`scores` (B, C), its column j entity base + j, with every known
+    answer of query b (entity ent[b], relation rel[b]) set to NEG_INF, in
+    place (on a contiguous copy where `scores` is not contiguous, which is
+    returned). One `filter_known` launch on the card,
+    `filter_known_reference` off it. `index` None leaves the scores as they
+    are."""
+    if index is None:
+        return scores
+    scores = scores.contiguous()
+    (filter_known if scores.is_cuda else filter_known_reference)(
+        scores, ent.contiguous(), rel.contiguous(), *index, base, n_relations)
+    return scores

@@ -44,9 +44,10 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from skge_torch.data import greedy_entity_partition, rows_with_keys, true_triple_index
+from skge_torch.data import greedy_entity_partition, rows_with_keys
 from skge_torch.evaluation import RankingResult, ranking_scores
 from skge_torch.models.base import KGEModel
+from skge_torch.ops.cuda_filter import known_index, mask_known
 from skge_torch.optim import Optimizer
 from skge_torch.parallel.partitioned import relabel_entities
 from skge_torch.trainer import LOSSES
@@ -571,8 +572,11 @@ class OutOfCoreTrainer:
         arrive one PART at a time (the device holds one (S, d) slice and a
         (B, S) score block, never the full table), and ranks accumulate as
         running greater/equal counts against the target's score, which is
-        taken from the same streamed score blocks. Known-true filtering
-        subtracts the counts of the filter pairs' own scores.
+        taken from the same streamed score blocks. Each part's block gives
+        its raw counts, is then masked in place by
+        `ops/cuda_filter.mask_known` (the known answers of the block's
+        entities; one `filter_known` launch on the card) and gives its
+        filtered counts.
 
         The rank integers are the in-core `evaluation.evaluate`'s wherever
         no candidate's score lies within rounding of the target's. Mean and
@@ -600,11 +604,12 @@ class OutOfCoreTrainer:
                 "reciprocal eval expects the DOUBLED relation count "
                 "(data.add_reciprocal_relations)")
         half = model.n_relations // 2
+        n_rel = model.n_relations
         test_rel = remap(test)
         # the filter index over the known triples whose (s, p) or (o, p) key
-        # a query asks for (the ranks read no other), in original ids
+        # a query asks for (the ranks read no other), in remapped ids
         known = test if known is None else known
-        index = {"o": true_triple_index(remap(rows_with_keys(known, test, 0)))[0]}
+        index = known_index(remap(rows_with_keys(known, test, 0)), n_rel, dev, ("o",))
         known_s = remap(rows_with_keys(known, test, 1))
         if reciprocal:
 
@@ -616,9 +621,9 @@ class OutOfCoreTrainer:
 
             # the filter set {(o, inv p) -> objects} of the inverse-rewritten
             # known triples is the native {(o, p) -> subjects}
-            index["s"] = true_triple_index(inv(known_s))[0]
+            index["s"] = known_index(inv(known_s), n_rel, dev, ("o",))["o"]
         else:
-            index["s"] = true_triple_index(known_s)[1]
+            index.update(known_index(known_s, n_rel, dev, ("s",)))
 
         n = len(test_rel)
         bs = int(min(batch_size, max(1, n)))
@@ -637,25 +642,18 @@ class OutOfCoreTrainer:
             return out
 
         # per (direction, batch): query rows, targets (part, local row), and
-        # the filter pairs by part; uploaded once, reused over all parts
+        # the filter key's (entity, relation); uploaded once, reused over all
+        # parts
         batches = {}
         for d, (q, mode, tcol) in specs.items():
             for b in range(nb):
                 qb = q[b * bs : (b + 1) * bs]
-                key_col = 0 if mode == 1 else 1
-                per_part: Dict[int, list] = {}
-                for i, row in enumerate(qb):
-                    ents = index[d].get((int(row[key_col]), int(row[2])))
-                    if ents is None:
-                        continue
-                    for ent in np.unique(ents).tolist():
-                        per_part.setdefault(ent // s_rows, []).append((i, ent % s_rows))
                 tids = qb[:, tcol]
                 batches[d, b] = (rows_of(qb), mode,
                                  torch.as_tensor(tids // s_rows, device=dev),
                                  torch.as_tensor(tids % s_rows, device=dev),
-                                 {p: torch.as_tensor(np.asarray(pl).T, device=dev)
-                                  for p, pl in per_part.items()})
+                                 *(torch.as_tensor(qb[:, c], dtype=torch.int64, device=dev)
+                                   for c in (0 if mode == 1 else 1, 2)))
 
         def parts():
             for p in range(self.n_parts):
@@ -665,7 +663,7 @@ class OutOfCoreTrainer:
         # pass 1: each target's score, from the streamed part blocks
         tgts = {}
         for p, cand in parts():
-            for (d, b), (rows, mode, tpart, tloc, _) in batches.items():
+            for (d, b), (rows, mode, tpart, tloc, _, _) in batches.items():
                 sc = model.score_pool(rows, cand, dense, mode)        # (B, S_p)
                 inp = tpart == p
                 got = sc[torch.arange(sc.shape[0], device=dev),
@@ -673,37 +671,32 @@ class OutOfCoreTrainer:
                 prev = tgts.get((d, b), torch.zeros_like(got))
                 tgts[d, b] = prev + torch.where(inp, got, torch.zeros_like(got))
 
-        # pass 2: greater/equal counts against the targets, and the filter
-        # pairs' own counts
+        # pass 2: greater/equal counts against the targets, raw, then with
+        # the part's known answers masked
         acc = {}
         for p, cand in parts():
-            for (d, b), (rows, mode, _, _, fpairs) in batches.items():
+            for (d, b), (rows, mode, _, _, ent, rel) in batches.items():
                 sc = model.score_pool(rows, cand, dense, mode)
-                tgt = tgts[d, b]
-                g = torch.sum(sc > tgt[:, None], dim=1)
-                e = torch.sum(sc == tgt[:, None], dim=1)
-                fg, fe = torch.zeros_like(g), torch.zeros_like(e)
-                if p in fpairs:
-                    fr, floc = fpairs[p]
-                    sf, tf = sc[fr, floc], tgt[fr]
-                    fg.index_add_(0, fr, (sf > tf).to(g.dtype))
-                    fe.index_add_(0, fr, (sf == tf).to(e.dtype))
+                tgt = tgts[d, b][:, None]
+                g, e = torch.sum(sc > tgt, dim=1), torch.sum(sc == tgt, dim=1)
+                sc = mask_known(sc, ent, rel, index[d], p * s_rows, n_rel)
+                gf, ef = torch.sum(sc > tgt, dim=1), torch.sum(sc == tgt, dim=1)
                 a = acc.get((d, b))
-                acc[d, b] = ((g, e, fg, fe) if a is None
-                             else (a[0] + g, a[1] + e, a[2] + fg, a[3] + fe))
+                acc[d, b] = ((g, e, gf, ef) if a is None
+                             else (a[0] + g, a[1] + e, a[2] + gf, a[3] + ef))
 
         results = {}
         for d in specs:
             ranks = np.zeros(n, np.float64)
             ranks_raw = np.zeros(n, np.float64)
             for b in range(nb):
-                g, e, fg, fe = (x.cpu().numpy().astype(np.int64) for x in acc[d, b])
+                g, e, gf, ef = (x.cpu().numpy().astype(np.int64) for x in acc[d, b])
                 if ties == "optimistic":
                     raw = 1.0 + g
-                    filt = 1.0 + (g - fg)
+                    filt = 1.0 + gf
                 else:
                     raw = 1.0 + g + np.maximum(e - 1, 0) * 0.5
-                    filt = 1.0 + (g - fg) + np.maximum(e - fe, 0) * 0.5
+                    filt = 1.0 + gf + ef * 0.5
                 lo, hi = b * bs, min((b + 1) * bs, n)
                 ranks_raw[lo:hi] = raw
                 ranks[lo:hi] = filt

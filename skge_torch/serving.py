@@ -15,8 +15,8 @@ Both score candidates through the model's `score_pool`, as the JAX
 package's engines do, so their scores agree with each other. The filter
 is built once: `known`'s CSR index of each direction (`known_csr`) lives
 on the device, and each score tile (a batch, a rank's block, a chunk) is
-masked by one `filter_known` launch (ops/cuda_filter.py; its plain
-version off the card), with no per-query work on the host. Ties break
+masked by one `filter_known` launch (`ops/cuda_filter.mask_known`; its
+plain version off the card), with no per-query work on the host. Ties break
 toward the lower entity id, as `lax.top_k` breaks them: `_top_k` takes
 `torch.topk`'s k-th value, then keeps every entity above it and the
 lowest ids among those equal to it. In the streamed fold the frontier,
@@ -48,10 +48,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from skge_torch.data import known_csr
-from skge_torch.evaluation import NEG_INF
 from skge_torch.models.base import KGEModel, Params, entity_param
-from skge_torch.ops.cuda_filter import check_index, filter_known, filter_known_reference
+from skge_torch.ops.cuda_filter import NEG_INF, known_index, mask_known
 from skge_torch.utils.device import resolve_device
 from skge_torch.utils.metrics import span
 
@@ -160,33 +158,6 @@ def _query_rows(model: KGEModel, params: Params, ent, rel, direction: str):
 _MODE = {"o": 1, "s": 0}
 
 
-def _known_index(known, n_relations: int, device):
-    """{direction: (keys, offsets, answers)} of `known`'s CSR index
-    (`known_csr`) on `device`, uploaded and checked (`check_index`) once;
-    None without `known`."""
-    if known is None:
-        return None
-    t = np.asarray(known)
-    index = {d: tuple(torch.from_numpy(a).to(device) for a in known_csr(t, n_relations, d))
-             for d in _MODE}
-    for keys, offsets, answers in index.values():
-        check_index(keys, offsets, answers)
-    return index
-
-
-def _mask_known(scores: torch.Tensor, ent, rel, index, base: int, n_relations: int):
-    """`scores` (B, C), its column j entity base + j, with every known
-    answer of each query set to NEG_INF: `filter_known`, one kernel launch,
-    on the card, its plain version elsewhere. The host builds and copies
-    nothing per query. `index` None leaves the scores as they are."""
-    if index is None:
-        return scores
-    scores = scores.contiguous()
-    mask = filter_known if scores.is_cuda else filter_known_reference
-    mask(scores, ent, rel, *index, base, n_relations)
-    return scores
-
-
 def _top_k(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(values, column positions) of each row's k largest scores, descending,
     ties broken toward the lower position (`lax.top_k`'s rule).
@@ -278,7 +249,8 @@ class LinkPredictor:
             for kk, v in params.items()
         }
         self.batch_size = int(batch_size)
-        self._known = _known_index(known, model.n_relations, self.device)
+        self._known = (None if known is None
+                       else known_index(known, model.n_relations, self.device))
 
     @torch.no_grad()
     def _batch(self, ent, rel, index, direction: str, k: int):
@@ -290,7 +262,7 @@ class LinkPredictor:
             scores = model.score_pool(rows, _deq(params[entity_param(model)]),
                                       model.dense_params(params), _MODE[direction])
         with span("skge_torch.serve.filter"):
-            scores = _mask_known(scores, ent, rel, index, 0, model.n_relations)
+            scores = mask_known(scores, ent, rel, index, 0, model.n_relations)
         with span("skge_torch.serve.topk"):
             vals, ids = _top_k(scores, k)
             return _mask_invalid(vals, ids.to(torch.int32))
@@ -323,7 +295,7 @@ class LinkPredictor:
         scores = model.score_pool(rows, _deq(qe), model.dense_params(params),
                                   _MODE[direction])                 # (B, S)
         with span("skge_torch.serve.filter"):  # this block's columns: entities off + j
-            scores = _mask_known(scores, ent, rel, index, off, model.n_relations)
+            scores = mask_known(scores, ent, rel, index, off, model.n_relations)
         lvals, lids = _top_k(scores, min(k, s_rows))
         # (B, M * k') frontier in rank order: among equal scores the lower
         # position is the lower id, so `_top_k`'s rule carries over
@@ -434,7 +406,8 @@ class StreamedLinkPredictor:
                         if isinstance(stored, dict) else host(stored))
         self._small = {kk: _tensor(v).to(self.device)
                        for kk, v in params_host.items() if kk != epname}
-        self._known = _known_index(known, model.n_relations, self.device)
+        self._known = (None if known is None
+                       else known_index(known, model.n_relations, self.device))
         self.bytes_uploaded = 0
 
     def _upload(self, lo: int, hi: int):
@@ -504,7 +477,7 @@ class StreamedLinkPredictor:
             ids = torch.full((nvalid, k), -1, dtype=torch.int32, device=dev)
             for base, payload in self._chunks():
                 cand = _deq(payload)
-                scores = _mask_known(model.score_pool(qrows, cand, dense, mode),  # (B, C)
+                scores = mask_known(model.score_pool(qrows, cand, dense, mode),  # (B, C)
                                      ent, rel, index, base, model.n_relations)
                 cids = torch.arange(base, base + cand.shape[0], dtype=torch.int32,
                                     device=dev).expand(nvalid, -1)

@@ -8,18 +8,26 @@ inside the tile's columns set to NEG_INF), bit for bit, on rows with no
 answers, a hot key with a long list, out-of-range ids, an empty index, a
 short batch, and the windows of the sharded and streamed engines; the
 engines' one filter call a batch; the wrapper's refusal of CPU tensors.
+The rankers (`FilteredRankingEval` on one device and sharded over a gloo
+world of two processes, `OutOfCoreTrainer.evaluate` over three parts)
+against ranks counted on each whole tile masked by that plain loop, with
+and without the test triples among the known ones, a candidate mask,
+reciprocal relations and both tie rules.
 
 On the card (marked `cuda`, skipped without one): the kernel against the
 plain version at the serve cell's shape (1,024 Zipf queries against
 FB15k's 14,951 entities, filtered by its 483,142 triples), bit-equal
 tiles, the masked-cell counter equal to the plain version's pair count,
-and one launch a batch through `LinkPredictor`. This file does not import
-JAX:
+one launch a batch through `LinkPredictor` and two a batch through
+`FilteredRankingEval`. This file does not import JAX; the gloo world runs
+it as a script:
 
     python -m pytest --noconftest -m cuda tests/test_torch_serving_filter.py
 """
 
 import json
+import os
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -28,8 +36,12 @@ import torch
 
 from skge_torch import serving
 from skge_torch.data import known_csr, synthetic_kg, true_triple_index
+from skge_torch.evaluation import FilteredRankingEval, ReciprocalEvalWrapper
 from skge_torch.models import MODELS
 from skge_torch.ops import cuda_filter
+from skge_torch.optim import AdaGrad
+from skge_torch.outofcore import OutOfCoreTrainer
+from skge_torch.parallel import distributed
 
 torch.set_num_threads(1)
 
@@ -242,7 +254,7 @@ def test_engines_filter_once_a_tile_and_never_unfiltered(engine, monkeypatch):
         calls.append(args[0].shape)
         return real(*args)
 
-    monkeypatch.setattr(serving, "filter_known_reference", counted)
+    monkeypatch.setattr(cuda_filter, "filter_known_reference", counted)
 
     def make(known):
         if engine == "in-core":
@@ -289,7 +301,7 @@ def test_index_checked_once_where_it_is_built(monkeypatch):
         with pytest.raises(ValueError, match=match):
             cuda_filter.check_index(*bad)
     checked = []
-    monkeypatch.setattr(serving, "check_index", lambda *a: checked.append(len(a[0])))
+    monkeypatch.setattr(cuda_filter, "check_index", lambda *a: checked.append(len(a[0])))
     model = MODELS["transe"](N_E, N_R, 8)
     pred = serving.LinkPredictor(model, model.init_params(torch.Generator().manual_seed(0)),
                                  known=graph(), batch_size=16, device="cpu")
@@ -297,6 +309,140 @@ def test_index_checked_once_where_it_is_built(monkeypatch):
     pred.top_k(hot_queries(37), 5)
     pred.top_k(hot_queries(37), 5, direction="s")
     assert len(checked) == 2
+
+
+# --- the rankers ----------------------------------------------------------
+
+RANK_E, RANK_R = 60, 5  # the top relation, RANK_R - 1, only in the test split
+RANK_CASES = ["known_has_test", "known_without_test", "candidate_mask", "reciprocal"]
+WORLD_TIMEOUT_S = 150
+
+
+def rank_case(case):
+    """(model, params, test, known, candidate mask or None, reciprocal).
+    Integer-valued fp64 tables, so every TransE score is an exact integer
+    and ties are common; Zipf train triples below the top relation; test
+    triples with repeated keys, the top relation, and keys no known triple
+    has."""
+    rng = np.random.default_rng(11)
+    train = np.stack([zipf_ids(rng, RANK_E, 0.75, 400), zipf_ids(rng, RANK_E, 0.75, 400),
+                      zipf_ids(rng, RANK_R - 1, 1.0, 400)], 1)
+    test = np.concatenate([train[:12], np.stack([zipf_ids(rng, RANK_E, 0.75, 16),
+                                                 zipf_ids(rng, RANK_E, 0.75, 16),
+                                                 rng.integers(0, RANK_R, 16)], 1)])
+    test[-4:, 2] = RANK_R - 1
+    test[-1, :2] = test[-2, :2] = (RANK_E - 1, RANK_E - 2)
+    if case == "known_without_test":
+        known = train[~(train[:, None, :] == test[None]).all(-1).any(1)]
+    else:
+        known = np.concatenate([train, test])
+    reciprocal = case == "reciprocal"
+    n_r = 2 * RANK_R if reciprocal else RANK_R
+    model = MODELS["transe"](RANK_E, n_r, 4, dtype="float64")
+    params = {"E": torch.as_tensor(rng.integers(-2, 3, (RANK_E, 4)), dtype=torch.float64),
+              "R": torch.as_tensor(rng.integers(-2, 3, (n_r, 4)), dtype=torch.float64)}
+    cmask = None
+    if case == "candidate_mask":
+        cmask = rng.random(RANK_E) < 0.6
+        cmask[test[:, :2].ravel()] = True
+    return model, params, test.astype(np.int64), known.astype(np.int64), cmask, reciprocal
+
+
+def plain_ranks(case, ties):
+    """(filtered, raw) (2, n) ranks of each test triple, object then subject
+    direction, counted on the whole score tile: non-candidates at NEG_INF,
+    then `old_mask` for the filtered ranks. Mean ties count the target among
+    the equal scores wherever the filter leaves it (raw ranks: never)."""
+    model, params, test, known, cmask, reciprocal = rank_case(case)
+    t = torch.as_tensor(test)
+    s, o, p = t[:, 0], t[:, 1], t[:, 2]
+    filt, raw = [], []
+    for d, ent, target in (("o", s, o), ("s", o, s)):
+        if d == "o":
+            tile = model.score_all_o(params, s, p)
+        elif reciprocal:
+            tile = model.score_all_o(params, o, torch.where(p < RANK_R, p + RANK_R, p - RANK_R))
+        else:
+            tile = model.score_all_s(params, o, p)
+        if cmask is not None:
+            tile = torch.where(torch.as_tensor(cmask), tile, cuda_filter.NEG_INF)
+        tgt = tile[torch.arange(len(test)), target][:, None]
+        masked = old_mask(tile, torch.stack([ent, p], 1).numpy(), known, d)
+        for out, m, self_in in ((filt, masked, 0), (raw, tile, 1)):
+            g, e = (m > tgt).sum(1).numpy(), (m == tgt).sum(1).numpy()
+            out.append(1.0 + g if ties == "optimistic"
+                       else 1.0 + g + np.maximum(e - self_in, 0) * 0.5)
+    return np.stack(filt), np.stack(raw)
+
+
+def rank_with(ranker, case, ties, group=None):
+    """(filtered, raw) ranks of `ranker`: 'single' or 'group'
+    `FilteredRankingEval` (batches of 8, the last one short), 'streamed'
+    `OutOfCoreTrainer.evaluate` over 3 parts with the same tables."""
+    model, params, test, known, cmask, reciprocal = rank_case(case)
+    if ranker == "streamed":
+        tr = OutOfCoreTrainer(model, AdaGrad(lr=0.1), known, n_parts=3, k=8, nbatches=2,
+                              seed=0, device="cpu")
+        assert tr.part_size < RANK_E  # a part's tile starts past entity 0
+        tr.e_host["param"][torch.as_tensor(tr.new_of_old)] = params["E"]
+        tr.dev_params["R"] = params["R"]
+        res = tr.evaluate(test, known, batch_size=8, ties=ties, reciprocal=reciprocal)
+    else:
+        ev = FilteredRankingEval(ReciprocalEvalWrapper(model) if reciprocal else model,
+                                 test, known, batch_size=8, ties=ties, group=group,
+                                 candidate_mask=cmask)
+        res = ev(params)
+    return res.ranks, res.ranks_raw
+
+
+def world_worker(out_dir):
+    """One rank of the gloo world: every case's sharded ranks to an npz."""
+    torch.set_num_threads(1)
+    distributed.initialize(device="cpu", timeout_s=WORLD_TIMEOUT_S)
+    group = distributed.make_shard_mesh("cpu")
+    out = {}
+    for case in RANK_CASES:
+        for ties in ("mean", "optimistic"):
+            out[f"{case}/{ties}/filt"], out[f"{case}/{ties}/raw"] = rank_with(
+                "group", case, ties, group)
+    np.savez(os.path.join(out_dir, f"rank{group.rank}.npz"), **out)
+    distributed.destroy()
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """Both ranks' sharded ranks: 30 entities a rank, the second's block at
+    base 30."""
+    tmp = tmp_path_factory.mktemp("ranking_world")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.dirname(os.path.abspath(__file__)))]
+        + os.environ.get("PYTHONPATH", "").split(os.pathsep)))
+    procs = distributed.launch_local([sys.executable, os.path.abspath(__file__), str(tmp)],
+                                     2, WORLD_TIMEOUT_S, store_dir=str(tmp), env=env)
+    for rank, (rc, _, err) in enumerate(procs):
+        assert rc == 0, f"rank {rank}: {err[-3000:]}"
+    return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(2)]
+
+
+@pytest.mark.parametrize("ties", ["mean", "optimistic"])
+@pytest.mark.parametrize("ranker, case", [
+    (ranker, case) for ranker in ("single", "group", "streamed") for case in RANK_CASES
+    if not (ranker == "streamed" and case == "candidate_mask")])  # no such option there
+def test_rankers_filter_the_known_answers(ranker, case, ties, request):
+    """Each ranker's filtered and raw ranks equal the plain count's exactly."""
+    want_filt, want_raw = plain_ranks(case, ties)
+    if ranker == "group":
+        got = [(r[f"{case}/{ties}/filt"], r[f"{case}/{ties}/raw"])
+               for r in request.getfixturevalue("world")]
+    else:
+        got = [rank_with(ranker, case, ties)]
+    for filt, raw in got:
+        np.testing.assert_array_equal(filt, want_filt)
+        np.testing.assert_array_equal(raw, want_raw)
+    if case != "known_without_test":  # every target among its own known answers
+        assert np.all(want_filt <= want_raw)
+    if ties == "mean":
+        assert np.any(want_filt % 1 == 0.5), "the tables must make ties"
 
 
 # --- on the card ----------------------------------------------------------
@@ -395,6 +541,21 @@ def test_one_launch_a_batch_through_the_engine():
 
 
 @pytest.mark.cuda
+def test_two_launches_a_batch_through_the_ranking():
+    """`FilteredRankingEval` on the card: one `filter_known` launch a batch
+    and direction, the ranks those of the CPU."""
+    dev = _card()
+    model, params, test, known, _, _ = rank_case("known_has_test")
+    ev = FilteredRankingEval(model, test, known, batch_size=8)
+    want = ev(params)
+    before = cuda_filter.launches
+    got = ev({k: v.to(dev) for k, v in params.items()})
+    assert cuda_filter.launches - before == 2 * ev.n_batches == 8
+    np.testing.assert_array_equal(got.ranks, want.ranks)
+    np.testing.assert_array_equal(got.ranks_raw, want.ranks_raw)
+
+
+@pytest.mark.cuda
 def test_wrapper_refusals_on_card():
     dev = _card()
     index = [torch.from_numpy(a).to(dev) for a in known_csr(graph(), N_R, "o")]
@@ -415,3 +576,7 @@ def test_wrapper_refusals_on_card():
     with pytest.raises(ValueError, match="answers"):
         cuda_filter.check_index(index[0], index[1], index[2].cpu())
     assert cuda_filter.launches == before
+
+
+if __name__ == "__main__":
+    world_worker(sys.argv[1])
