@@ -93,11 +93,22 @@ Phases, each fatal:
    masked-cell counter equal to its pair count, one launch a batch; timed
    at one batch beside the plain version on the card and the mask it
    replaced (a bool mask of the pairs, `index_fill_`, `masked_fill_`);
+   the top k (`top_k`, every serving engine's, which replaces no TPU
+   kernel) at the serve cell's shape (1,024 rows of 14,951 with copied
+   columns, so that rows tie, a row with fewer eligible cells than k, one
+   of +0.0 and -0.0, one all equal; k of 1, 10, 64, 1,000 and 14,951), an
+   fp64 tile, the streamed fold's (1,024, 10 + 4,096) and the sharded
+   merge's (1,024, 4 x 10) shapes and a short odd row: values and
+   positions `torch.equal` to the plain version's on the card, one launch
+   a call; timed at the serving batch (k = 10, the epilogue folded in)
+   beside the plain version and `torch.topk` (the library, which keeps no
+   tie rule and which the port does not call);
 4. training, each path with the launch counts set to 0 just before it and
    read just after, exact launch counts (every gradient scatter on K1's
    16-byte path; K3's forward and two gradients a TransE-L1 pool step, and
    a forward a ranking or serving batch; one `filter_known` launch a
-   ranked or served score tile, `_ranked` and `_served`, in every phase
+   ranked or served score tile, `_ranked` and `_served`, and one `top_k`
+   launch a served tile (two a batch on the mesh engine), in every phase
    that counts a ranking or serving: 7a, 10f, 10g, 11f, 12d, 13d, 14a-b,
    15a, 15e and 16c-f), finite losses and params on the card: TransE (4), RESCAL pairwise (4b), 2 epochs of 100 steps each;
    RESCAL pointwise 10 steps (4c); iid TransE (4d), HolE (4e) and ER-MLP
@@ -414,7 +425,8 @@ its last line {"ok": true, "device": {...}}.
 `--kernel-times` runs phases 1-2 and phase 3's timings alone, on the same
 inputs and without the checks, and prints no result line. Copied into an
 older tree of the repository that has `skge_torch/ops/grouping.py`,
-`skge_torch/ops/cuda_l1.py` and `skge_torch/ops/cuda_filter.py` and run
+`skge_torch/ops/cuda_l1.py`, `skge_torch/ops/cuda_filter.py` and
+`skge_torch/ops/cuda_topk.py` and run
 there, it times that tree's kernels at this tree's shapes: parent against
 change on one card.
 """
@@ -464,7 +476,8 @@ from skge_torch.experiment import Experiment, make_parser
 from skge_torch.models import RotatE, conve, transe
 from skge_torch.models.base import ACTIVATIONS
 from skge_torch.optim import EPS
-from skge_torch.ops import _build, cuda_filter, cuda_l1, cuda_outer, cuda_segment, grouping
+from skge_torch.ops import (_build, cuda_filter, cuda_l1, cuda_outer, cuda_segment, cuda_topk,
+                            grouping)
 from skge_torch.outofcore import BucketPoolSampler, make_bucket_epoch
 from skge_torch.parallel import distributed as pdist
 from skge_torch.parallel import mesh as pmesh
@@ -525,9 +538,9 @@ KERNELS = {  # name: (wrapper module, source, the TPU kernel it replaces)
 }
 # built beside the kernels: the grouping by row that K1's deterministic
 # variant and K2 run first (ops/grouping.py), and K3, the TransE-L1 pool
-# sweep (ops/cuda_l1.py), and the serving filter (ops/cuda_filter.py), which
-# replace no TPU kernel
-SOURCES = (*KERNELS, "group_by_row", "l1_pool", "filter_known")
+# sweep (ops/cuda_l1.py), the serving filter (ops/cuda_filter.py) and the
+# top k (ops/cuda_topk.py), which replace no TPU kernel
+SOURCES = (*KERNELS, "group_by_row", "l1_pool", "filter_known", "top_k")
 RTOL = ATOL = 1e-5  # segment_sum: fp32 sums in atomic order, as in tests/test_pallas.py
 # rows of more occurrences than this (only phase 3's two hot-row cases, of
 # 5,344 and 10,688) are held to the fp64 sum within their fp32 summation
@@ -542,6 +555,7 @@ VECTOR = "segment_sum 16-byte path"  # the launch count of K1's float4 path
 L1 = "l1_pool"  # K3's forward launches
 L1_GRAD = "l1_pool gradient"  # K3's gradient launches (dq and dp each one)
 FILTER = "filter_known"  # the serving filter's launches (one a score tile)
+TOPK = "top_k"  # the top k's launches (one a served tile, two a mesh batch)
 # phase 3: K1's deterministic variant checked at these cases (7f's E and W
 # counts, 15a's and 15b's step, full-rank TransR's M, a hot row and all of
 # T on one row at RESCAL's E, the edge shapes) and timed at DET_TIMED
@@ -829,7 +843,8 @@ def build() -> None:
         for line in (out or "").splitlines():
             if "registers" in line or "spill" in line:
                 log("    ptxas:", line.strip())
-    for mod in (*(mod for mod, _, _ in KERNELS.values()), grouping, cuda_l1, cuda_filter):
+    for mod in (*(mod for mod, _, _ in KERNELS.values()), grouping, cuda_l1, cuda_filter,
+                cuda_topk):
         mod._lib()  # loads, binds the C interface
 
 
@@ -1504,6 +1519,56 @@ def filter_known_checks(dev, verify=True) -> tuple[float, list]:
                              library="index_fill_ + masked_fill_ of the pairs")]
 
 
+def top_k_checks(dev, verify=True) -> tuple[float, list]:
+    """The top k at the serve cell's shape and the other engines' (`verify`):
+    the serving batch's (1,024, 14,951) tile with 64 copied columns, so
+    that every row ties, a row with 5 eligible cells, a row of +0.0 and
+    -0.0, an all-equal row, at k of 1, 10, 64, 1,000 and 14,951; an fp64
+    tile; the streamed fold's (1,024, 10 + 4,096), its frontier -inf; the
+    sharded merge's (1,024, 4 x 10); a row of 37. Values (sign bits too)
+    and positions `torch.equal` to the plain version's on the card, one
+    launch a call. Timed at the serving batch (k = 10, masked) beside the
+    plain version and `torch.topk`. Returns (0.0, the results being exact;
+    [timed shape]). Bytes: the tile read once, a value and an int32 id
+    written a slot."""
+    b, n, k = SERVE.batch, DATA.n_entities, SERVE.k
+    gen_t = torch.Generator(device=dev).manual_seed(11)
+    scores = torch.randn(b, n, generator=gen_t, device=dev)
+    scores[:, 64:128] = scores[:, 4096:4160]
+    scores[0, 5:] = cuda_filter.NEG_INF
+    scores[1] = 0.0
+    scores[1, ::2] = -0.0
+    scores[2] = 1.5
+    fold = torch.cat([torch.full((b, k), -math.inf, device=dev),
+                      torch.randn(b, SERVE.chunk, generator=gen_t, device=dev)], dim=1)
+    cases = [*((f"serving batch, k={kk}", scores, kk, mask)
+               for kk, mask in ((1, True), (10, True), (10, False), (64, True), (1_000, True),
+                                (n, True))),
+             ("fp64 tile", scores[:64].double(), k, True),
+             ("streamed fold", fold, k, False),
+             ("sharded merge", torch.randn(b, 4 * k, generator=gen_t, device=dev), k, False),
+             ("a row of 37", scores[:3, :37].contiguous(), k, True)]
+    for what, tile, kk, mask in cases if verify else ():
+        before = cuda_topk.launches
+        got = cuda_topk.top_k(tile, kk, mask)
+        calls = cuda_topk.launches - before
+        want = cuda_topk.top_k_reference(tile, kk, mask)
+        same = all(torch.equal(g, w) for g, w in zip(got, want)) and torch.equal(
+            torch.signbit(got[0]), torch.signbit(want[0]))
+        log(f"[3] top_k {what}: {tuple(tile.shape)} {str(tile.dtype)[6:]}, mask {mask}: "
+            f"{'equal' if same else 'DIFFERS from'} the plain version's, {calls} launch")
+        check(same, f"top_k against its plain version ({what})")
+        check(calls == 1, f"top_k: one launch a call ({what})")
+    times = time_rounds(
+        {"kernel": lambda s: cuda_topk.top_k(s, k, True),
+         "plain": lambda s: cuda_topk.top_k_reference(s, k, True),
+         "library": lambda s: torch.topk(s, k, dim=1)},
+        (scores,), f"top_k at B={b}, n={n}, k={k} (serving batch, masked)", n=50, n_plain=10)
+    nbytes = scores.numel() * 4 + b * k * (4 + 4)
+    return 0.0, [timed_shape(f"B={b}, n={n}, k={k}: a serving batch, the epilogue folded in",
+                             times, nbytes=nbytes, flops=0, library="torch.topk")]
+
+
 def make_model(cfg, ds):
     if cfg.model == "transe":
         return TransE(ds.n_entities, ds.n_relations, ncomp=cfg.ncomp)
@@ -1833,6 +1898,7 @@ def reset_counts() -> None:
     grouping.launches = 0
     cuda_l1.launches = cuda_l1.backward_launches = 0
     cuda_filter.launches = 0
+    cuda_topk.launches = 0
 
 
 def read_counts() -> dict:
@@ -1841,18 +1907,20 @@ def read_counts() -> dict:
     counts[L1] = cuda_l1.launches
     counts[L1_GRAD] = cuda_l1.backward_launches
     counts[FILTER] = cuda_filter.launches
+    counts[TOPK] = cuda_topk.launches
     return counts
 
 
-def _launches(k1, k2, vector, l1=0, l1_grad=0, filters=0) -> dict:
+def _launches(k1, k2, vector, l1=0, l1_grad=0, filters=0, topks=0) -> dict:
     return {"segment_sum": k1, "segment_outer_sum": k2, VECTOR: vector, L1: l1,
-            L1_GRAD: l1_grad, FILTER: filters}
+            L1_GRAD: l1_grad, FILTER: filters, TOPK: topks}
 
 
-def _served(tiles, k3=True) -> dict:
-    """`tiles` score tiles served: one `filter_known` launch each, and one
-    K3 forward each where the model is TransE-L1 in fp32 (`k3`)."""
-    return _launches(0, 0, 0, tiles if k3 else 0, 0, tiles)
+def _served(tiles, k3=True, topks=None) -> dict:
+    """`tiles` score tiles served: one `filter_known` launch each, one K3
+    forward each where the model is TransE-L1 in fp32 (`k3`), and one
+    `top_k` launch each unless `topks` says otherwise."""
+    return _launches(0, 0, 0, tiles if k3 else 0, 0, tiles, tiles if topks is None else topks)
 
 
 def _ranked(n, batch, parts=1) -> int:
@@ -3728,8 +3796,10 @@ def mesh_serving(graph, tr, dev, mesh, launches) -> None:
                                  quantize=quant, **kw)
             reset_counts()
             res[what] = pred.top_k(queries, SERVE.k)
+            # the mesh engine: its block's top k and the merge of the frontiers
             _counted("12d", f"{what} LinkPredictor {quant or 'exact'}, {batches} batches",
-                     _served(batches), dev, launches)
+                     _served(batches, topks=(2 if what == "mesh" else 1) * batches), dev,
+                     launches)
         got, want = res["mesh"], res["single-device"]
         same = (np.array_equal(got.entities, want.entities)
                 and np.array_equal(got.scores, want.scores))
@@ -4777,7 +4847,8 @@ def main(argv) -> int:
     checks = {"segment_sum": segment_sum_checks(dev, verify),
               "segment_outer_sum": segment_outer_sum_checks(dev, verify),
               "l1_pool": l1_pool_checks(dev, verify),
-              "filter_known": filter_known_checks(dev, verify)}
+              "filter_known": filter_known_checks(dev, verify),
+              "top_k": top_k_checks(dev, verify)}
     t_kernels = time.perf_counter()
     if not verify:  # phase 3's timings alone: no check, no result line
         log(json.dumps({name: shapes for name, (_, shapes) in checks.items()}))
@@ -4786,7 +4857,7 @@ def main(argv) -> int:
     graphs = {name: synthetic_kg(g.n_entities, g.n_relations, g.n_train,
                                  n_test=g.n_test, seed=g.seed, clustered=False)
               for name, g in (("fb15k", DATA), ("wn18", WN18))}
-    launches = dict.fromkeys([*KERNELS, VECTOR, L1, L1_GRAD, FILTER], 0)
+    launches = dict.fromkeys([*KERNELS, VECTOR, L1, L1_GRAD, FILTER, TOPK], 0)
     trained = {}
     for cfg, tag in PATHS:
         *run, counts, _, step_ms = train(cfg, graphs[cfg.data], dev, tag)
@@ -4890,7 +4961,8 @@ def main(argv) -> int:
         "shapes": checks[name][1],
     } for name, (_, source, replaces) in {
         **KERNELS, "l1_pool": (cuda_l1, "skge_torch/csrc/l1_pool.cu", None),
-        "filter_known": (cuda_filter, "skge_torch/csrc/filter_known.cu", None)}.items()]}))
+        "filter_known": (cuda_filter, "skge_torch/csrc/filter_known.cu", None),
+        "top_k": (cuda_topk, "skge_torch/csrc/top_k.cu", None)}.items()]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

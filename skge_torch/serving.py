@@ -17,9 +17,10 @@ is built once: `known`'s CSR index of each direction (`known_csr`) lives
 on the device, and each score tile (a batch, a rank's block, a chunk) is
 masked by one `filter_known` launch (`ops/cuda_filter.mask_known`; its
 plain version off the card), with no per-query work on the host. Ties break
-toward the lower entity id, as `lax.top_k` breaks them: `_top_k` takes
-`torch.topk`'s k-th value, then keeps every entity above it and the
-lowest ids among those equal to it. In the streamed fold the frontier,
+toward the lower entity id, as `lax.top_k` breaks them: `_top_k` takes each
+tile's k best by value, then column, in one `top_k` launch on the card
+(`ops/cuda_topk.py`; its plain version off it), which on one device also
+turns filtered winners into (-inf, -1). In the streamed fold the frontier,
 which holds lower ids, sits before the chunk, so it wins ties.
 
 The entity table may be stored quantized: per-row int8 or float8_e4m3fn
@@ -49,7 +50,8 @@ import numpy as np
 import torch
 
 from skge_torch.models.base import KGEModel, Params, entity_param
-from skge_torch.ops.cuda_filter import NEG_INF, known_index, mask_known
+from skge_torch.ops import cuda_topk
+from skge_torch.ops.cuda_filter import known_index, mask_known
 from skge_torch.utils.device import resolve_device
 from skge_torch.utils.metrics import span
 
@@ -158,35 +160,14 @@ def _query_rows(model: KGEModel, params: Params, ent, rel, direction: str):
 _MODE = {"o": 1, "s": 0}
 
 
-def _top_k(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _top_k(scores: torch.Tensor, k: int, mask: bool = False):
     """(values, column positions) of each row's k largest scores, descending,
-    ties broken toward the lower position (`lax.top_k`'s rule).
-
-    `torch.topk` gives the k-th value exactly but promises no order among
-    equal values; every column above the k-th value is in the result, and
-    the lowest columns equal to it fill the remaining slots.
-    """
-    kth = torch.topk(scores, k, dim=1).values[:, k - 1 : k]
-    above = scores > kth
-    room = k - above.sum(dim=1, keepdim=True)
-    tied = scores == kth
-    take = above | (tied & (torch.cumsum(tied, dim=1, dtype=torch.int32) <= room))
-    # the k taken columns, ascending, with no host sync: each taken column
-    # keyed n - column (distinct, > 0), every other column 0
-    n = scores.shape[1]
-    key = take * torch.arange(n, 0, -1, dtype=torch.int32, device=scores.device)
-    pos = torch.topk(key, k, dim=1).indices
-    vals = torch.gather(scores, 1, pos)
-    vals, order = torch.sort(vals, dim=1, descending=True, stable=True)
-    return vals, torch.gather(pos, 1, order)
-
-
-def _mask_invalid(vals: torch.Tensor, ids: torch.Tensor):
-    """Filtered winners (score <= NEG_INF) become (-inf, -1): a slot only
-    wins when k exceeds the eligible candidates."""
-    bad = vals <= NEG_INF
-    return (torch.where(bad, torch.full_like(vals, -np.inf), vals),
-            torch.where(bad, torch.full_like(ids, -1), ids))
+    ties broken toward the lower position (`lax.top_k`'s rule); with `mask`,
+    filtered winners as (-inf, -1) and the ids int32 (`mask_invalid`). One
+    `cuda_topk.top_k` launch on the card, `top_k_reference` off it."""
+    if scores.is_cuda:
+        return cuda_topk.top_k(scores.contiguous(), k, mask)
+    return cuda_topk.top_k_reference(scores, k, mask)
 
 
 def _queries(queries) -> np.ndarray:
@@ -264,8 +245,7 @@ class LinkPredictor:
         with span("skge_torch.serve.filter"):
             scores = mask_known(scores, ent, rel, index, 0, model.n_relations)
         with span("skge_torch.serve.topk"):
-            vals, ids = _top_k(scores, k)
-            return _mask_invalid(vals, ids.to(torch.int32))
+            return _top_k(scores, k, mask=True)
 
     def _sharded_rows(self, idx_by_role):
         """Each slot's rows on the candidate-sharded engine: entity rows by
@@ -304,7 +284,7 @@ class LinkPredictor:
         aids = group.all_gather((lids + off).contiguous()).permute(1, 0, 2).reshape(b, -1)
         vals, pick = _top_k(avals, k)
         ids = torch.gather(aids, 1, pick)
-        return _mask_invalid(vals, ids.to(torch.int32))
+        return cuda_topk.mask_invalid(vals, ids.to(torch.int32))
 
     def top_k(
         self,
@@ -483,7 +463,7 @@ class StreamedLinkPredictor:
                                     device=dev).expand(nvalid, -1)
                 vals, pick = _top_k(torch.cat([vals, scores], dim=1), k)
                 ids = torch.gather(torch.cat([ids, cids], dim=1), 1, pick)
-            vals, ids = _mask_invalid(vals, ids)
+            vals, ids = cuda_topk.mask_invalid(vals, ids)
             out_vals[start : start + nvalid] = vals.cpu().numpy()
             out_ids[start : start + nvalid] = ids.cpu().numpy()
         return TopKResult(entities=out_ids, scores=out_vals)

@@ -27,7 +27,7 @@ import torch
 import skge_torch.ops.aggregate as aggregate
 from skge_torch import bench
 from skge_torch.models import transe
-from skge_torch.ops import cuda_l1
+from skge_torch.ops import cuda_l1, cuda_topk
 from skge_torch.data import synthetic_kg
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -172,7 +172,8 @@ def test_scatters_a_step_as_chip_smoke_expects(row, monkeypatch):
     card routes it, to a stand-in for K3 that counts as its wrapper does),
     against phase 16's table."""
     calls = {"segment_sum": 0, "segment_outer_sum": 0, chip_smoke.VECTOR: 0,
-             chip_smoke.L1: 0, chip_smoke.L1_GRAD: 0, chip_smoke.FILTER: 0}
+             chip_smoke.L1: 0, chip_smoke.L1_GRAD: 0, chip_smoke.FILTER: 0,
+             chip_smoke.TOPK: 0}
 
     class CountedL1(torch.autograd.Function):
         @staticmethod
@@ -203,6 +204,13 @@ def test_scatters_a_step_as_chip_smoke_expects(row, monkeypatch):
     monkeypatch.setattr(transe, "_on_k3",
                         lambda q, rows: q.dtype == rows.dtype == torch.float32)
     monkeypatch.setattr(transe, "l1_pool", CountedL1.apply)
+    plain_top_k = cuda_topk.top_k_reference  # the top k's route off the card
+
+    def counted_top_k(*args):
+        calls[chip_smoke.TOPK] += 1
+        return plain_top_k(*args)
+
+    monkeypatch.setattr(cuda_topk, "top_k_reference", counted_top_k)
     run_main(bench, ["--all"] + TINY, [row], monkeypatch)
     steps = (1 + 2) * 2  # a warm-up and 2 timed epochs of 2 steps
     want = chip_smoke.bench_launches(" ".join(row), steps)
