@@ -27,8 +27,9 @@ Phases, each fatal:
 
 1. environment: versions, the card's name and power limit; no GPU -> exit 2;
 2. build both kernels, the grouping by row that K1's deterministic
-   variant and K2 run first (skge_torch/csrc/group_by_row.cu) and K3
-   (skge_torch/csrc/l1_pool.cu) from source with nvcc, in parallel;
+   variant and K2 run first (skge_torch/csrc/group_by_row.cu), K3
+   (skge_torch/csrc/l1_pool.cu), the filter, the top k and K6
+   (skge_torch/csrc/rotate_pool.cu) from source with nvcc, in parallel;
 3. each kernel against its plain PyTorch version on the card, at the
    paths' shapes and at edge shapes, and timed beside its bound (the bytes
    it must move at 3.35 TB/s, or its fp32 operations at 67 TFLOP/s).
@@ -103,6 +104,14 @@ Phases, each fatal:
    a call; timed at the serving batch (k = 10, the epilogue folded in)
    beside the plain version and `torch.topk` (the library, which keeps no
    tie rule and which the port does not call);
+   K6 (`rotate_pool`, RotatE's sum of complex moduli, which replaces no TPU
+   kernel): forward, dq and dp against the plain versions in fp64 and
+   bit-equal in two calls, exact zero moduli planted (0, finite
+   gradients), at rotate_fb15k.pool256's step (both modes' 2 x 1,024
+   rotated queries against the pool of 256, d = 1,000), a serving batch's
+   (1,024 against 14,951) and ragged ones; the wrapper's refusals; timed
+   at the first (forward and backward) and the second (forward) beside the
+   plain chunked sweep;
 4. training, each path with the launch counts set to 0 just before it and
    read just after, exact launch counts (every gradient scatter on K1's
    16-byte path; K3's forward and two gradients a TransE-L1 pool step, and
@@ -416,6 +425,12 @@ Phases, each fatal:
       by name;
    17b HolE at WN18's shape on a shared pool of 1,024 (margin 0.2), 50
       steps: the same, `torch.equal`.
+18. RotatE with its published distance at FB15k's shape and width
+   (`rotate_phase`): 18a 30 graphed pool steps against the eager ones,
+   `torch.equal`, K6 in the score graph and exact K6 and K1 counts; 18b
+   `LinkPredictor`'s top 10 on the card against the CPU engine at a small
+   graph, and at FB15k's shape against the float64 reference within the
+   serve cell's limits, one K6 forward a batch.
 
 Prints one JSON line with the kernel table, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.
@@ -476,15 +491,15 @@ from skge_torch.experiment import Experiment, make_parser
 from skge_torch.models import RotatE, conve, transe
 from skge_torch.models.base import ACTIVATIONS
 from skge_torch.optim import EPS
-from skge_torch.ops import (_build, cuda_filter, cuda_l1, cuda_outer, cuda_segment, cuda_topk,
-                            grouping)
+from skge_torch.ops import (_build, cuda_filter, cuda_l1, cuda_outer, cuda_rotate, cuda_segment,
+                            cuda_topk, grouping)
 from skge_torch.outofcore import BucketPoolSampler, make_bucket_epoch
 from skge_torch.parallel import distributed as pdist
 from skge_torch.parallel import mesh as pmesh
 from skge_torch.parallel import partitioned as ppart
 from skge_torch.parallel import sharded as psh
 from skge_torch.parallel import shardmap_step as psm
-from skge_torch.training import PoolStepGraphs, regularized
+from skge_torch.training import _COUNTERS, PoolStepGraphs, regularized
 from skge_torch.utils.debug import assert_finite_state
 
 # the graphs the paths train on: FB15k's shape (DATA) and WN18's
@@ -538,9 +553,10 @@ KERNELS = {  # name: (wrapper module, source, the TPU kernel it replaces)
 }
 # built beside the kernels: the grouping by row that K1's deterministic
 # variant and K2 run first (ops/grouping.py), and K3, the TransE-L1 pool
-# sweep (ops/cuda_l1.py), the serving filter (ops/cuda_filter.py) and the
-# top k (ops/cuda_topk.py), which replace no TPU kernel
-SOURCES = (*KERNELS, "group_by_row", "l1_pool", "filter_known", "top_k")
+# sweep (ops/cuda_l1.py), the serving filter (ops/cuda_filter.py), the
+# top k (ops/cuda_topk.py) and K6, RotatE's modulus sweep (ops/cuda_rotate.py),
+# which replace no TPU kernel
+SOURCES = (*KERNELS, "group_by_row", "l1_pool", "filter_known", "top_k", "rotate_pool")
 RTOL = ATOL = 1e-5  # segment_sum: fp32 sums in atomic order, as in tests/test_pallas.py
 # rows of more occurrences than this (only phase 3's two hot-row cases, of
 # 5,344 and 10,688) are held to the fp64 sum within their fp32 summation
@@ -556,6 +572,14 @@ L1 = "l1_pool"  # K3's forward launches
 L1_GRAD = "l1_pool gradient"  # K3's gradient launches (dq and dp each one)
 FILTER = "filter_known"  # the serving filter's launches (one a score tile)
 TOPK = "top_k"  # the top k's launches (one a served tile, two a mesh batch)
+ROT = "rotate_pool"  # K6's forward launches
+ROT_GRAD = "rotate_pool gradient"  # K6's gradient launches (dq and dp each one)
+# phase 18 and K6's phase-3 shapes: RotatE with its published distance at
+# FB15k's published widths (Sun et al. 2019: complex width 1,000, batches of
+# 1,024, 256 negatives, here a pool shared by the batch in both modes), the
+# benchmark cell rotate_fb15k.pool256's path
+ROTATE = SimpleNamespace(ncomp=1000, batch=1024, k=256, margin=1.0, lr=0.1, steps=30,
+                         nqueries=2048, top=10, small=(2_000, 20, 8_000), small_queries=128)
 # phase 3: K1's deterministic variant checked at these cases (7f's E and W
 # counts, 15a's and 15b's step, full-rank TransR's M, a hot row and all of
 # T on one row at RESCAL's E, the edge shapes) and timed at DET_TIMED
@@ -844,7 +868,7 @@ def build() -> None:
             if "registers" in line or "spill" in line:
                 log("    ptxas:", line.strip())
     for mod in (*(mod for mod, _, _ in KERNELS.values()), grouping, cuda_l1, cuda_filter,
-                cuda_topk):
+                cuda_topk, cuda_rotate):
         mod._lib()  # loads, binds the C interface
 
 
@@ -1569,6 +1593,152 @@ def top_k_checks(dev, verify=True) -> tuple[float, list]:
                              times, nbytes=nbytes, flops=0, library="torch.topk")]
 
 
+def _rotate_k6_sweep(q, p, g):
+    """K6 forward and backward, as a shared-pool step runs it."""
+    qq, pp = q.detach().requires_grad_(), p.detach().requires_grad_()
+    return torch.autograd.grad(cuda_rotate.rotate_pool(qq, pp), [qq, pp], g)
+
+
+def _rotate_plain_sweep(q, p, g):
+    """The plain sweep in K6's place, forward and backward: chunks of 8 pool
+    rows (a (B, 8, 2d) broadcast, 131 MB at the pool step's shape), each
+    under `torch.utils.checkpoint`."""
+    qq, pp = q.detach().requires_grad_(), p.detach().requires_grad_()
+    s = torch.cat([checkpoint(cuda_rotate.rotate_pool_reference, qq, c, use_reentrant=False)
+                   for c in torch.split(pp, 8)], dim=1)
+    return torch.autograd.grad(s, [qq, pp], g)
+
+
+def _zero_moduli(q, p):
+    """p with row 0 equal to q's row 0 (every modulus 0) and row 1 sharing
+    q's row 1 in its first two complex dimensions, where both have them."""
+    p = p.clone()
+    b, k, d = q.shape[0], p.shape[0], q.shape[1] // 2
+    if b > 1 and k > 1:
+        p[0] = q[0]
+        for c in range(min(2, d)):
+            p[1, c], p[1, d + c] = q[1, c], q[1, d + c]
+    return p
+
+
+def check_rotate_pool(name, q, p, g) -> float:
+    """One case: K6's forward and both gradients against the plain versions
+    in fp64 on the same fp32 inputs, within 8 (d + 8) u of a score's sum of
+    moduli (each root's few ulps, then the ordered sum) and 8 (n + 64) u
+    sum |G| of a gradient over n reduced rows; bit-equal to a second call;
+    one forward and two gradient launches a call; 0 and finite gradients
+    at an exact zero modulus. Returns the max abs error of the scores."""
+    u = 2.0**-24
+    counters = lambda: (cuda_rotate.launches, cuda_rotate.backward_launches)
+    before = counters()
+    runs = []
+    for _ in range(2):
+        qq, pp = q.clone().requires_grad_(), p.clone().requires_grad_()
+        s = cuda_rotate.rotate_pool(qq, pp)
+        runs.append((s.detach(), *torch.autograd.grad(s, [qq, pp], g)))
+    torch.cuda.synchronize()
+    check(tuple(a - b for a, b in zip(counters(), before)) == (2, 4),
+          f"rotate_pool: one forward and two gradient launches a call ({name})")
+    same = all(bool(torch.equal(a, b)) for a, b in zip(*runs))
+    s, dq, dp = runs[0]
+    (b, w), k = q.shape, p.shape[0]
+    d = w // 2
+    q64, p64, g64 = q.double(), p.double(), g.double()
+    ok, worst, dp_want = True, 0.0, torch.zeros_like(p64)
+    chunk = max(1, 2**27 // (k * w))
+    for lo in range(0, b, chunk):
+        qs, gs = q64[lo:lo + chunk], g64[lo:lo + chunk]
+        want = cuda_rotate.rotate_pool_reference(qs, p64)
+        gap = (s[lo:lo + chunk].double() - want).abs()
+        ok = ok and bool((gap <= 8 * (d + 8) * u * want.abs()).all())
+        worst = max(worst, float(gap.max()))
+        dq_want, part = cuda_rotate.rotate_pool_backward_reference(qs, p64, gs)
+        dp_want += part
+        ok = ok and bool(((dq[lo:lo + chunk].double() - dq_want).abs()
+                          <= 8 * (k + 64) * u * gs.abs().sum(1, keepdim=True)).all())
+    ok = ok and bool(((dp.double() - dp_want).abs()
+                      <= 8 * (b + 64) * u * g64.abs().sum(0)[:, None]).all())
+    zero = b < 2 or k < 2 or (float(s[0, 0]) == 0.0 and bool(torch.isfinite(dq).all())
+                              and bool(torch.isfinite(dp).all()))
+    log(f"[3] rotate_pool {name:16s} B={b:6d} K={k:6d} d={d:5d}  max|err| of S "
+        f"{worst:.3e}; S, dq, dp within their bounds: {'ok' if ok else 'MISMATCH'}; two "
+        f"calls {'bit-equal' if same else 'DIFFER'}; zero modulus {'ok' if zero else 'WRONG'}")
+    check(ok, f"rotate_pool against its plain versions ({name})")
+    check(same, f"rotate_pool repeats bit for bit ({name})")
+    check(zero, f"rotate_pool: 0 and finite gradients at a zero modulus ({name})")
+    return worst
+
+
+def _rotate_refusals(dev) -> None:
+    """The wrapper raises, and launches nothing, on what the kernels do not take."""
+    before = (cuda_rotate.launches, cuda_rotate.backward_launches)
+    q = torch.zeros(4, 8, device=dev)
+    for what, args, err in (
+            ("CPU tensors", (q.cpu(), q.cpu()), ValueError),
+            ("fp64", (q.double(), q.double()), TypeError),
+            ("a non-contiguous q", (torch.zeros(8, 4, device=dev).T, q), ValueError),
+            ("an odd width", (q[:, :7].contiguous(), q[:, :7].contiguous()), ValueError),
+            ("unequal widths", (q, q[:, :6].contiguous()), ValueError)):
+        try:
+            cuda_rotate.rotate_pool(*args)
+            raised = False
+        except err:
+            raised = True
+        check(raised, f"rotate_pool refuses {what}")
+    check((cuda_rotate.launches, cuda_rotate.backward_launches) == before,
+          "rotate_pool: a refused call launches nothing")
+
+
+def rotate_pool_checks(dev, verify=True) -> tuple[float, list]:
+    """K6 against its plain versions (`verify`, `check_rotate_pool`) at
+    rotate_fb15k.pool256's step (both modes' 1,024 rotated queries stacked
+    against the pool of 256, d = 1,000), a serving batch's shape (1,024
+    queries against FB15k's 14,951 entities) and ragged ones, exact zero
+    moduli planted; the wrapper's refusals; returns (max abs error of the
+    scores, [timed shapes]): the pool step forward and backward beside the
+    plain chunked sweep, and a serving batch's forward beside the chunked
+    forward. No single PyTorch call computes a sum of complex moduli, so no
+    library time. Operations (`kgebench/models/rotate.py`'s `pair_flops`):
+    7 an (i, j, c) element forward, 8 the two gradients."""
+    b, k, d = 2 * ROTATE.batch, ROTATE.k, ROTATE.ncomp
+    gen = torch.Generator(device=dev).manual_seed(6)
+    cases = [("pool step", b, k, d), ("serving batch", SERVE.batch, DATA.n_entities, d),
+             ("one query", 1, 33, 5), ("one pool row", 4_097, 1, 33),
+             ("ragged", 33, 4_097, 1), ("ragged d", 130, 65, 129)]
+    worst, inputs = 0.0, {}
+    for name, bb, kk, dd in cases:
+        q = 0.02 * torch.randn(bb, 2 * dd, generator=gen, device=dev)
+        p = _zero_moduli(q, 0.02 * torch.randn(kk, 2 * dd, generator=gen, device=dev))
+        g = torch.randn(bb, kk, generator=gen, device=dev)
+        if verify:
+            worst = max(worst, check_rotate_pool(name, q, p, g))
+        inputs[name] = (q, p, g)
+    if verify:
+        _rotate_refusals(dev)
+    q, p, g = inputs["pool step"]
+    fm = (g > 0).to(torch.float32)  # the margin loss's G: the violation mask
+    times = time_rounds({"kernel": _rotate_k6_sweep, "plain": _rotate_plain_sweep}, (q, p, fm),
+                        f"rotate_pool forward and backward at B={b}, K={k}, d={d} (pool step)",
+                        n=20, n_plain=3)
+    w = 2 * d
+    shapes = [timed_shape(f"B={b}, K={k}, d={d}: a pool step, forward and backward", times,
+                          nbytes=4 * (4 * b * w + 4 * k * w + 3 * b * k), flops=15 * b * k * d,
+                          library="none")]
+    q, p, _ = inputs["serving batch"]
+    with torch.no_grad():
+        times = time_rounds(
+            {"kernel": cuda_rotate.rotate_pool,
+             "plain": lambda qq, pp: torch.cat(
+                 [cuda_rotate.rotate_pool_reference(qq, c) for c in torch.split(pp, 8)], dim=1)},
+            (q, p), f"rotate_pool forward at B={q.shape[0]}, K={p.shape[0]}, d={d} "
+            "(serving batch)", n=10, n_plain=2)
+    shapes.append(timed_shape(f"B={q.shape[0]}, K={p.shape[0]}, d={d}: a serving batch, "
+                              "forward", times, nbytes=4 * (q.numel() + p.numel()
+                                                            + q.shape[0] * p.shape[0]),
+                              flops=7 * q.shape[0] * p.shape[0] * d, library="none"))
+    return worst, shapes
+
+
 def make_model(cfg, ds):
     if cfg.model == "transe":
         return TransE(ds.n_entities, ds.n_relations, ncomp=cfg.ncomp)
@@ -1899,6 +2069,7 @@ def reset_counts() -> None:
     cuda_l1.launches = cuda_l1.backward_launches = 0
     cuda_filter.launches = 0
     cuda_topk.launches = 0
+    cuda_rotate.launches = cuda_rotate.backward_launches = 0
 
 
 def read_counts() -> dict:
@@ -1908,12 +2079,14 @@ def read_counts() -> dict:
     counts[L1_GRAD] = cuda_l1.backward_launches
     counts[FILTER] = cuda_filter.launches
     counts[TOPK] = cuda_topk.launches
+    counts[ROT] = cuda_rotate.launches
+    counts[ROT_GRAD] = cuda_rotate.backward_launches
     return counts
 
 
-def _launches(k1, k2, vector, l1=0, l1_grad=0, filters=0, topks=0) -> dict:
+def _launches(k1, k2, vector, l1=0, l1_grad=0, filters=0, topks=0, rot=0, rot_grad=0) -> dict:
     return {"segment_sum": k1, "segment_outer_sum": k2, VECTOR: vector, L1: l1,
-            L1_GRAD: l1_grad, FILTER: filters, TOPK: topks}
+            L1_GRAD: l1_grad, FILTER: filters, TOPK: topks, ROT: rot, ROT_GRAD: rot_grad}
 
 
 def _served(tiles, k3=True, topks=None) -> dict:
@@ -2931,6 +3104,24 @@ def host_waits(run) -> int:
     return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
 
 
+def top_agree(tag, got, ref, k, tol=RANK_GAP) -> None:
+    """The RANK_GAP rule: `got`'s top-k ids equal `ref`'s (its top k + 1) as a
+    set wherever ref's k-th and (k+1)-th scores lie more than `tol` apart,
+    in order where every gap does, and every score within `tol`."""
+    gaps = -np.diff(ref.scores.astype(np.float64), axis=1)
+    cut = gaps[:, k - 1] > tol
+    ordered = (gaps > tol).all(axis=1)
+    sets = np.sort(got.entities, axis=1) == np.sort(ref.entities[:, :k], axis=1)
+    check(bool(sets[cut].all()), f"{tag}: the top {k} where the k-th gap > {tol}")
+    check(bool(np.array_equal(got.entities[ordered], ref.entities[ordered, :k])),
+          f"{tag}: ids in order where every gap > {tol}")
+    fin = np.isfinite(ref.scores[:, :k])
+    err = float(np.max(np.abs(got.scores - ref.scores[:, :k])[fin]))
+    log(f"[{tag}] {int(cut.sum())} of {len(cut)} queries with a gap at the k-th "
+        f"place, {int(ordered.sum())} with every gap > {tol}; max |dscore| {err:.3e}")
+    check(err <= tol, f"{tag}: scores within {tol}")
+
+
 def serving(graph, params, dev, launches) -> None:
     """10g: the serving engines on 10a's trained TransE-L1, on
     `skge_torch.serving_bench`'s query stream and timing at its defaults,
@@ -2980,20 +3171,6 @@ def serving(graph, params, dev, launches) -> None:
     _counted("10g", f"LinkPredictor exact, top {k + 1}, {first_batches} batches",
              _served(first_batches), dev, launches)
 
-    def agree(tag, got, ref):
-        gaps = -np.diff(ref.scores.astype(np.float64), axis=1)
-        cut = gaps[:, k - 1] > RANK_GAP
-        ordered = (gaps > RANK_GAP).all(axis=1)
-        sets = np.sort(got.entities, axis=1) == np.sort(ref.entities[:, :k], axis=1)
-        check(bool(sets[cut].all()), f"{tag}: the top {k} where the k-th gap > {RANK_GAP}")
-        check(bool(np.array_equal(got.entities[ordered], ref.entities[ordered, :k])),
-              f"{tag}: ids in order where every gap > {RANK_GAP}")
-        fin = np.isfinite(ref.scores[:, :k])
-        err = float(np.max(np.abs(got.scores - ref.scores[:, :k])[fin]))
-        log(f"[{tag}] {int(cut.sum())} of {len(cut)} queries with a gap at the k-th "
-            f"place, {int(ordered.sum())} with every gap > {RANK_GAP}; max |dscore| {err:.3e}")
-        check(err <= RANK_GAP, f"{tag}: scores within {RANK_GAP}")
-
     t0 = time.perf_counter()
     reset_counts()
     cpu11 = LinkPredictor(model, params, known=known, batch_size=SERVE.batch,
@@ -3003,7 +3180,7 @@ def serving(graph, params, dev, launches) -> None:
     _counted("10g", "the CPU engine, nothing on the card", _served(0), dev, launches)
     first = SimpleNamespace(entities=res.entities[: SERVE.cpu_queries],
                             scores=res.scores[: SERVE.cpu_queries])
-    agree("10g card vs CPU", first, cpu11)
+    top_agree("10g card vs CPU", first, cpu11, k)
     for quantize in ("int8", "fp8", "bfloat16"):
         pred = filtered_like_exact(LinkPredictor(
             model, params, batch_size=SERVE.batch, quantize=quantize, device=dev))
@@ -3039,9 +3216,9 @@ def serving(graph, params, dev, launches) -> None:
         log(f"[10g] the host's waits on the card in one query batch: {waits}")
         check(waits["streamed"] == waits["streamed in 1 chunk"],
               "10g: the streamed engine's host waits do not grow with its chunks")
-    agree("10g streamed vs in-core", SimpleNamespace(
+    top_agree("10g streamed vs in-core", SimpleNamespace(
         entities=sres.entities[: SERVE.cpu_queries],
-        scores=sres.scores[: SERVE.cpu_queries]), ref11)
+        scores=sres.scores[: SERVE.cpu_queries]), ref11, k)
     argv = (["--cpu"] if dev.type == "cpu" else []) + SERVE.bench
     bench = serving_bench.parse_args(argv)
     reset_counts()
@@ -4834,6 +5011,116 @@ def step_graphs(fb15k, wn18, dev, launches) -> None:
                   f"{tag}: K3's kernels among the graphed epoch's, by name")
 
 
+def _rotate_steps(model, xs, dev, graphs):
+    """`ROTATE.steps` pool steps of RotatE-modulus, one epoch of batches of
+    `ROTATE.batch`, under deterministic algorithms, graphed or eager, the
+    counts set to 0 first: (the step, its state, the losses, the counts,
+    seconds)."""
+    opt = AdaGrad(lr=ROTATE.lr)
+    step = make_pairwise_step(model, opt, SharedNegativeSampler(model.n_entities, k=ROTATE.k),
+                              margin=ROTATE.margin, aggregate="dense", graphs=graphs)
+    check(isinstance(step, PoolStepGraphs) == graphs, f"18a graphs={graphs}: the step's kind")
+    epoch = make_epoch_fn(step, xs.shape[0], ROTATE.steps)
+    state = init_state(model, opt, torch.Generator(device=dev).manual_seed(0))
+    reset_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    with deterministic():
+        state, m = epoch(state, xs)
+        _sync(dev)
+    return step, state, m.loss, read_counts(), time.perf_counter() - t0
+
+
+def rotate_phase(fb15k, dev, launches) -> None:
+    """Phase 18: RotatE with its published distance (`distance="modulus"`)
+    at FB15k's shape and its published widths, the path of the benchmark
+    cell rotate_fb15k.pool256.
+
+    18a: 30 shared-pool steps of batches of 1,024 against a pool of 256 in
+    both modes, AdaGrad, the dense aggregate, through `make_pairwise_step`
+    as a `PoolStepGraphs` (eager first, captured at its second call,
+    replayed after) and as the eager step, from the same state and seed
+    under deterministic algorithms: tables, accumulators and losses
+    `torch.equal`; each held to exact launches: a step's K6 forward and two
+    gradients (counted by the replays: the score graph records them), and
+    its two K1 (E at D = 2,001 and R at D = 1,001, each padded to the
+    16-byte path).
+    18b: `LinkPredictor` on 18a's tables: the top 10 of 128 queries on the
+    card against the CPU engine's top 11 at a small graph (2,000 entities,
+    width 1,000) by the RANK_GAP rule; then 2,048 queries (the first train
+    triples' (s, p), filtered by the 483,142 train triples) at FB15k's
+    shape against the float64 reference (`kgebench.check.serve_numbers`
+    over `kgebench/models/rotate.py`'s scores), rank_gap and score_gap
+    within the serve cell's limits and nothing filtered, invalid or
+    missing; one K6 forward, one filter and one top-k launch a batch."""
+    from kgebench import check as kcheck, reference, registry
+
+    model = RotatE(fb15k.n_entities, fb15k.n_relations, ROTATE.ncomp, distance="modulus")
+    xs = torch.as_tensor(fb15k.train[: ROTATE.steps * ROTATE.batch], dtype=torch.int64,
+                         device=dev)
+    (step, graphed, g_loss, g_counts, g_dt), (_, eager, e_loss, e_counts, e_dt) = (
+        _rotate_steps(model, xs, dev, True), _rotate_steps(model, xs, dev, False))
+    steps = ROTATE.steps
+    log(f"[18a] RotatE-modulus pool, d={ROTATE.ncomp}, {steps} steps of {ROTATE.batch} "
+        f"against {ROTATE.k}, deterministic: graphed {1e3 * g_dt / steps:.3f} ms a step, "
+        f"eager {1e3 * e_dt / steps:.3f}; launches graphed {g_counts}, eager {e_counts}")
+    if dev.type == "cuda":
+        check(sorted(step.graphs) == ["score", "update"], "18a: the two graphs captured")
+        recorded = dict(zip(_COUNTERS, step.graphs["score"][1]))
+        check((recorded[cuda_rotate, "launches"], recorded[cuda_rotate, "backward_launches"])
+              == (1, 2), "18a: the score graph holds K6's forward and two gradients")
+    for name in eager.params:
+        check(torch.equal(graphed.params[name], eager.params[name]),
+              f"18a: params[{name!r}] graphed equal to eager")
+        check(torch.equal(graphed.opt_state[name]["p2"], eager.opt_state[name]["p2"]),
+              f"18a: p2[{name!r}] graphed equal to eager")
+    check(torch.equal(g_loss, e_loss) and bool(torch.isfinite(g_loss).all())
+          and len(set(g_loss.tolist())) > 1, "18a: the losses graphed equal to eager, finite")
+    want = _launches(2 * steps, 0, 2 * steps, rot=steps, rot_grad=2 * steps)
+    for what, counts in (("graphed", g_counts), ("eager", e_counts)):
+        check(dev.type != "cuda" or counts == want,
+              f"18a {what}: launches {counts}, want {want}")
+        for name in launches:
+            launches[name] += counts[name]
+    params = graphed.params
+
+    n_e, n_r, n_train = ROTATE.small
+    small = synthetic_kg(n_e, n_r, n_train, seed=1, clustered=False)
+    sm = RotatE(n_e, n_r, ROTATE.ncomp, distance="modulus")
+    sp = init_state(sm, AdaGrad(lr=ROTATE.lr), torch.Generator().manual_seed(2)).params
+    queries = np.stack([small.train[:ROTATE.small_queries, 0],
+                        small.train[:ROTATE.small_queries, 2]], axis=1)
+    reset_counts()
+    card = LinkPredictor(sm, {k: v.to(dev) for k, v in sp.items()}, known=small.train,
+                         batch_size=SERVE.batch, device=dev).top_k(queries, ROTATE.top)
+    _counted("18b", "LinkPredictor at the small graph, 1 batch",
+             {**_served(1, k3=False), ROT: 1}, dev, launches)
+    cpu = LinkPredictor(sm, sp, known=small.train, batch_size=SERVE.batch,
+                        device="cpu").top_k(queries, ROTATE.top + 1)
+    top_agree("18b card vs CPU", card, cpu, ROTATE.top)
+
+    queries = np.stack([fb15k.train[:ROTATE.nqueries, 0], fb15k.train[:ROTATE.nqueries, 2]],
+                       axis=1)
+    pred = LinkPredictor(model, params, known=fb15k.train, batch_size=SERVE.batch, device=dev)
+    reset_counts()
+    res = pred.top_k(queries, ROTATE.top)
+    batches = -(-ROTATE.nqueries // SERVE.batch)
+    _counted("18b", f"LinkPredictor at FB15k's shape, {batches} batches",
+             {**_served(batches, k3=False), ROT: batches}, dev, launches)
+    ref_model = registry.load_module(registry.ROOT / "models" / "rotate.py", "smoke_rotate_ref")
+    ref_params = {k: v.double() for k, v in params.items()}
+    index = reference.known_index(fb15k.train, fb15k.n_relations, "o")
+    full = torch.cat([s for _, s in reference.rank_scores(
+        ref_model, ref_params, queries, index, "o", reference.PRECISIONS["fp64"], block=4)])
+    top = torch.topk(full, ROTATE.top, dim=1)
+    got = kcheck.serve_numbers(res.entities, res.scores, top.values, full, fb15k.n_entities,
+                               ROTATE.top)
+    limits = registry.load_json(registry.ROOT / "cells" / "transe_l1_fb15k.serve.json")["limits"]
+    log(f"[18b] {ROTATE.nqueries} queries at FB15k's shape against the float64 reference: "
+        f"{got}; the serve cell's limits {limits}")
+    check(kcheck.judge(got, limits), "18b: the served top 10 within the serve cell's limits")
+
+
 def main(argv) -> int:
     if argv not in ([], ["--kernel-times"]):
         print("usage: python3 chip_smoke.py [--kernel-times]", file=sys.stderr)
@@ -4848,7 +5135,8 @@ def main(argv) -> int:
               "segment_outer_sum": segment_outer_sum_checks(dev, verify),
               "l1_pool": l1_pool_checks(dev, verify),
               "filter_known": filter_known_checks(dev, verify),
-              "top_k": top_k_checks(dev, verify)}
+              "top_k": top_k_checks(dev, verify),
+              "rotate_pool": rotate_pool_checks(dev, verify)}
     t_kernels = time.perf_counter()
     if not verify:  # phase 3's timings alone: no check, no result line
         log(json.dumps({name: shapes for name, (_, shapes) in checks.items()}))
@@ -4857,7 +5145,7 @@ def main(argv) -> int:
     graphs = {name: synthetic_kg(g.n_entities, g.n_relations, g.n_train,
                                  n_test=g.n_test, seed=g.seed, clustered=False)
               for name, g in (("fb15k", DATA), ("wn18", WN18))}
-    launches = dict.fromkeys([*KERNELS, VECTOR, L1, L1_GRAD, FILTER, TOPK], 0)
+    launches = dict.fromkeys([*KERNELS, VECTOR, L1, L1_GRAD, FILTER, TOPK, ROT, ROT_GRAD], 0)
     trained = {}
     for cfg, tag in PATHS:
         *run, counts, _, step_ms = train(cfg, graphs[cfg.data], dev, tag)
@@ -4928,6 +5216,8 @@ def main(argv) -> int:
     t_16 = bench_phase(dev, launches, phase4_ms)
     t_17s = time.perf_counter()
     step_graphs(fb15k, wn18, dev, launches)
+    t_18s = time.perf_counter()
+    rotate_phase(fb15k, dev, launches)
     t_end = time.perf_counter()
     log(f"[time] phases 1-2 {t_build - t0:.1f} s, 3 {t_kernels - t_build:.1f} s, "
         f"4 {t_train - t_kernels:.1f} s (graphs included), 5-6 {t_eval - t_train:.1f} s, "
@@ -4944,7 +5234,7 @@ def main(argv) -> int:
         + ", ".join(f"15{sub} {s:.1f}" for sub, s in t_15.items())
         + f"), 16 {t_17s - t_16s:.1f} s ("
         + ", ".join(f"16{sub} {s:.1f}" for sub, s in t_16.items())
-        + f"), 17 {t_end - t_17s:.1f} s")
+        + f"), 17 {t_18s - t_17s:.1f} s, 18 {t_end - t_18s:.1f} s")
     # each kernel at the TransE or RESCAL slice's shape, its other timed
     # shapes under "shapes"; launches summed over the counted paths
     log(json.dumps({"kernels": [{
@@ -4954,6 +5244,7 @@ def main(argv) -> int:
         "replaces": replaces,
         "launches": launches[name],
         **({"backward_launches": launches[L1_GRAD]} if name == L1 else {}),
+        **({"backward_launches": launches[ROT_GRAD]} if name == ROT else {}),
         "max_abs_err": checks[name][0],
         **{key: checks[name][1][0].get(key) for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_call",
@@ -4962,7 +5253,8 @@ def main(argv) -> int:
     } for name, (_, source, replaces) in {
         **KERNELS, "l1_pool": (cuda_l1, "skge_torch/csrc/l1_pool.cu", None),
         "filter_known": (cuda_filter, "skge_torch/csrc/filter_known.cu", None),
-        "top_k": (cuda_topk, "skge_torch/csrc/top_k.cu", None)}.items()]}))
+        "top_k": (cuda_topk, "skge_torch/csrc/top_k.cu", None),
+        "rotate_pool": (cuda_rotate, "skge_torch/csrc/rotate_pool.cu", None)}.items()]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

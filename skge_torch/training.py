@@ -50,7 +50,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from skge_torch.models.base import ACTIVATIONS, KGEModel, Params, acc_dtype
-from skge_torch.ops import cuda_l1, cuda_outer, cuda_segment, grouping
+from skge_torch.ops import cuda_l1, cuda_outer, cuda_rotate, cuda_segment, grouping
 from skge_torch.ops.aggregate import (
     WIDE_ROW,
     DenseGrads,
@@ -1073,6 +1073,7 @@ def graphs_eligible(model: KGEModel, opt: Optimizer, sampler, aggregate: str,
 # and takes them back; each replay adds them
 _COUNTERS = tuple((mod, name) for mod, names in (
     (cuda_l1, ("launches", "backward_launches")),
+    (cuda_rotate, ("launches", "backward_launches")),
     (cuda_segment, ("launches", "vector_launches", "deterministic_launches",
                     "combine_launches")),
     (cuda_outer, ("launches",)),

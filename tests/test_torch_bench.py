@@ -173,7 +173,7 @@ def test_scatters_a_step_as_chip_smoke_expects(row, monkeypatch):
     against phase 16's table."""
     calls = {"segment_sum": 0, "segment_outer_sum": 0, chip_smoke.VECTOR: 0,
              chip_smoke.L1: 0, chip_smoke.L1_GRAD: 0, chip_smoke.FILTER: 0,
-             chip_smoke.TOPK: 0}
+             chip_smoke.TOPK: 0, chip_smoke.ROT: 0, chip_smoke.ROT_GRAD: 0}
 
     class CountedL1(torch.autograd.Function):
         @staticmethod
